@@ -17,13 +17,28 @@ Phases, each of which raises (exit code != 0) on failure:
      (256, 8192, 512) and (64, 131072, 512): exact equality on the defined
      part of every row (anchors[:count] and the count | probed << 32
      tail); times from CUDA events;
-  5. the main path: `python -m linear_tpu_torch filter reads genome -t
-     <ncpu> -ot 2` as a subprocess, in turns with --device cuda, host,
-     host, cuda. All SAM files must be byte-identical. Each cuda run must
-     report seed kernel launches > 0, as many superchunks as launches,
-     seeded reads > 0, every seeded read mapped with its device seeds, and
-     every eligible read either seeded or left to the workers for a stated
-     reason (N bases, or an overflow of m_out 512).
+  5. the extension kernel (_filterHits + path_dst_2) against its plain
+     version, both on the card, at the -b 0 path's shape (B, pad, H, C, R)
+     = (1024, 8192, 256, 512, 510), with the hits of the native first pass
+     on corpus reads seeded on the card, and once more with C cut to 100 so
+     that rows overflow: cords, counts and overflow flags exactly equal;
+  6. the DIndex build on the card against the host build and against its
+     plain version on the card, on the N-free genome (the corpus genome
+     with every N replaced by a base from numpy.random.default_rng(43)):
+     dir and hs exactly equal; the build time beside the upload time;
+  7. the main paths, `python -m linear_tpu_torch filter reads genome -t
+     <ncpu> -ot 2` as subprocesses:
+       -b 1 in turns with --device cuda, host, host, cuda: all SAM files
+       byte-identical; each cuda run reports seed kernel launches > 0, as
+       many superchunks as launches, seeded reads > 0, every seeded read
+       mapped with its device seeds, and every eligible read either seeded
+       or left to the host for a stated reason (N bases, or an overflow of
+       m_out 512);
+       -b 0 with --device cuda and host: byte-identical SAM; extension
+       kernel launches > 0, extended reads > 0, and every eligible read
+       either extended or counted under one host re-map reason;
+       -b 1 on the N-free genome with --device cuda and host:
+       byte-identical SAM, and the index built on the card.
 It prints the kernels as one JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Without a CUDA device, or without the rest
 of the repository beside it, it exits 1 before printing any result.
@@ -38,6 +53,8 @@ import subprocess
 import sys
 import time
 
+import numpy as np
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GENOME_LEN = 4_600_000
 N_READS = 10240
@@ -46,6 +63,10 @@ SEED = 42
 # (rows, pad, m_out): the two tiers of Mapper._device_seed_stream2 at the
 # corpus' pad, and the longest reads the device seeds
 SHAPES = [(1024, 8192, 128), (256, 8192, 512), (64, 131072, 512)]
+# the extension check: a full batch of Mapper._device_extend_block at the
+# corpus' pad (C = H + pad / 32), and a cut C that makes rows overflow
+EXT_B, EXT_PAD, EXT_H = 1024, 8192, 256
+EXT_CS = [EXT_H + EXT_PAD // 32, 100]
 
 
 def log(msg: str) -> None:
@@ -95,8 +116,6 @@ def edge_reads(genome):
     """Exact reads for the first call position: 21 T then 40 A give a
     forward p = 0 window with an all-A minimizer (xval 0, the dedup's
     initial value); homopolymer starts tie all nine candidates."""
-    import numpy as np
-
     from linear_tpu_torch.utils import seqio
 
     tail = genome[1_000_000:1_003_000]
@@ -124,7 +143,6 @@ def time_ms(fn, iters: int) -> float:
 def check_kernel(index, genome, rng):
     """Phase 4: kernel vs plain version at SHAPES; returns the numbers of
     the main shape and prints every shape's."""
-    import numpy as np
     import torch
 
     from linear_tpu_torch.ops import seeding as SD
@@ -176,8 +194,6 @@ def check_kernel(index, genome, rng):
 
 
 def make_corpus(d):
-    import numpy as np
-
     from linear_tpu_torch.utils import seqio, simdata
 
     g_fa = os.path.join(d, "genome.fa")
@@ -194,22 +210,190 @@ def make_corpus(d):
     return genome, g_fa, r_fa
 
 
-def run_filter(d, g_fa, r_fa, device, threads):
+
+
+def make_nfree(d, genome):
+    """The corpus genome with every N replaced by a base drawn from
+    numpy.random.default_rng(43): the card builds its index."""
+    from linear_tpu_torch.utils import seqio
+
+    g = genome.copy()
+    n = g == 4
+    g[n] = np.random.default_rng(43).integers(0, 4, int(n.sum()))
+    fa = os.path.join(d, "genome_nfree.fa")
+    if not os.path.exists(fa):
+        seqio.write_fasta(fa + ".tmp", ["U00096.3 synthetic, N-free"], [g])
+        os.replace(fa + ".tmp", fa)
+    return g, fa
+
+
+def _max_abs_err(got, want) -> int:
+    """Largest |got - want| over arrays of integers (0 when equal)."""
+    err = 0
+    for a, b in zip(got, want):
+        a = np.asarray(a).astype(np.int64).ravel()
+        b = np.asarray(b).astype(np.int64).ravel()
+        if a.shape != b.shape:
+            raise AssertionError(f"shapes differ: {a.shape} vs {b.shape}")
+        bad = np.flatnonzero(a != b)
+        err = max([err] + [abs(int(a[i]) - int(b[i])) for i in bad[:1000]])
+    return err
+
+
+def check_extend(g_fa, r_fa, threads):
+    """Phase 5: the extension kernel vs its plain version at (EXT_B,
+    EXT_PAD, EXT_H, C, R) for each C of EXT_CS, on corpus reads seeded on
+    the card as in the run."""
+    import torch
+
+    from linear_tpu_torch.map.mapper import Mapper, MapperConfig
+    from linear_tpu_torch.ops import extend_dev as ED
+    from linear_tpu_torch.utils import seqio
+
+    m = Mapper([g_fa], MapperConfig(threads=threads, bal_flag=0),
+               device="cuda")
+    m.prepare()
+    m._ensure_dev_index()
+    block = next(seqio.read_blocks(r_fa))
+    cand = [r for r in block.seqs
+            if 200 < len(r) <= EXT_PAD and not (r == 4).any()][: 2 * EXT_B]
+    seeds = [None] * len(cand)
+    for _, idxs, anchors in m._device_seed_stream2([(0, cand)]):
+        for i, a in zip(idxs, anchors):
+            seeds[i] = a
+    ne = m.native_engine()
+    reads, hits = [], []
+    for r, s in zip(cand, seeds):
+        h = ne.apx_hits(r, s)
+        if len(h) <= EXT_H:
+            reads.append(r)
+            hits.append(h)
+        if len(reads) == EXT_B:
+            break
+    packed, lens = ED.pack_rows(reads, EXT_PAD)
+    hm = np.zeros((EXT_B, EXT_H), dtype=np.uint64)
+    hn = np.zeros((EXT_B,), dtype=np.int32)
+    for k, h in enumerate(hits):
+        hm[k, : len(h)] = h
+        hn[k] = len(h)
+    args = [torch.from_numpy(a).cuda()
+            for a in (packed, lens, hm.view(np.int64), hn)]
+    gf = ED.upload_genome_feats(m.f2, "cuda")
+    R = ED.feature_rows(EXT_PAD)
+    results = []
+    for C in EXT_CS:
+        got = ED.filter_extend(*args, gf, C)
+        want = ED.filter_extend_reference(*args, gf, C, R)
+        torch.cuda.synchronize()
+        got = [t.cpu().numpy() for t in got]
+        want = [t.cpu().numpy() for t in want]
+        same = all(np.array_equal(a, b) for a, b in zip(got, want))
+        err = _max_abs_err(got, want)
+        n_ovf = int(want[2].sum())
+        n_ext = int((want[1] > 1).sum())
+        ms = time_ms(lambda: ED.filter_extend(*args, gf, C), 10)
+        plain_ms = time_ms(lambda: ED.filter_extend_reference(
+            *args, gf, C, R), 1)
+        log(f"extension check (B, pad, H, C, R) = {(EXT_B, EXT_PAD, EXT_H, C, R)}: "
+            f"rows with cords {n_ext}, overflow rows {n_ovf}, cords "
+            f"{int(want[1].sum())}, equal {same}, max_abs_err {err}; kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
+        if not same:
+            raise AssertionError(f"extension kernel disagrees with the plain "
+                                 f"version at C = {C}")
+        if C == EXT_CS[0] and (n_ovf or n_ext < EXT_B // 2):
+            raise AssertionError("the main shape should extend most rows "
+                                 "without overflow")
+        if C == EXT_CS[-1] and not 0 < n_ovf < EXT_B:
+            raise AssertionError("the cut C should make some rows overflow")
+        results.append({"shape": [EXT_B, EXT_PAD, EXT_H, C, R], "ms": ms,
+                        "plain_ms": plain_ms, "max_abs_err": err,
+                        "overflow_rows": n_ovf})
+    return results
+
+
+def check_devbuild(g, threads):
+    """Phase 6: the DIndex built on the card vs the host build, and its
+    kernels vs their plain versions on the card."""
+    import torch
+
+    from linear_tpu_torch.index import dindex as DI
+    from linear_tpu_torch.ops import devbuild as DB
+    from linear_tpu_torch.ops import seeding as SD
+
+    t0 = time.time()
+    host = DI.build_dindex([g], threads)
+    t_host = time.time() - t0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    up = SD.upload_index(host.dir, host.hs, "cuda")
+    torch.cuda.synchronize()
+    t_up = time.time() - t0
+    del up
+    t0 = time.time()
+    dirp, hs, largest = DB.build_dindex_device([g], "cuda", threads)
+    torch.cuda.synchronize()
+    t_build = time.time() - t0
+    idx = DB.device_build_to_index(dirp, hs, largest)
+    if not (np.array_equal(dirp.cpu().numpy(), host.dir)
+            and np.array_equal(hs.cpu().numpy().view(np.uint64), host.hs)):
+        raise AssertionError("the DIndex built on the card differs from the "
+                             "host build")
+    cap_host = SD.bucket_cap(int(np.diff(host.dir).max()))
+    if idx.cap != cap_host:
+        raise AssertionError(f"cap {idx.cap} != host cap {cap_host}")
+    del idx, dirp, hs
+
+    j, bs = DB._samples(len(g), threads)
+    gt = torch.from_numpy(g).cuda()
+    jt = torch.from_numpy(j).cuda()
+    bst = torch.from_numpy(bs).cuda()
+    gid = torch.zeros_like(jt)
+
+    def kernel():
+        xv, yv, st = DB.sample_states(gt, jt)
+        return (xv, yv, st), DB.emit_count_sort(xv, yv, st, jt, gid, bst)
+
+    def plain():
+        xv, yv, st = SD.minimizer_xy_at(gt, jt)
+        return (xv, yv, st), DB.emit_count_sort_reference(xv, yv, st, jt,
+                                                          gid, bst)
+
+    (ks, (kd, kh, kl)), (ps, (pd, ph, pl)) = kernel(), plain()
+    got = [t.cpu().numpy() for t in (*ks, kd, kh)] + [kl]
+    want = [t.cpu().numpy() for t in (*ps, pd, ph)] + [pl]
+    err = _max_abs_err(got, want)
+    same = all(np.array_equal(a, b) for a, b in zip(got, want))
+    ms = time_ms(kernel, 5)
+    plain_ms = time_ms(plain, 2)
+    log(f"devbuild check: genome {len(g)} b, {len(j)} samples, hs "
+        f"{len(host.hs)} entries, cap {cap_host}; equal to the host build; "
+        f"kernels vs plain equal {same}, max_abs_err {err}; kernels {ms:.4f} "
+        f"ms, plain {plain_ms:.4f} ms; whole build on the card {t_build:.4f} "
+        f"s vs host build {t_host:.4f} s + upload {t_up:.4f} s")
+    if not same:
+        raise AssertionError("devbuild kernels disagree with the plain version")
+    torch.cuda.empty_cache()
+    return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+            "build_s": t_build, "upload_s": t_up, "host_build_s": t_host}
+
+
+def run_filter(d, g_fa, r_fa, device, threads, extra=(), tag=""):
     """One CLI run; returns (sam sha256, stats dict)."""
-    prefix = os.path.join(d, f"out_{device}")
+    prefix = os.path.join(d, f"out{tag}_{device}")
     env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
     t0 = time.time()
     res = subprocess.run(
         [sys.executable, "-m", "linear_tpu_torch", "filter", r_fa, g_fa,
-         "-t", str(threads), "-o", prefix, "-ot", "2", "--device", device],
-        capture_output=True, text=True, env=env, cwd=ROOT)
+         "-t", str(threads), "-o", prefix, "-ot", "2", "--device", device,
+         *extra], capture_output=True, text=True, env=env, cwd=ROOT)
     wall = time.time() - t0
     if res.returncode != 0:
-        raise RuntimeError(f"filter --device {device} exited "
-                           f"{res.returncode}:\n{res.stderr[-4000:]}")
+        raise RuntimeError(f"filter {' '.join(extra)} --device {device} "
+                           f"exited {res.returncode}:\n{res.stderr[-4000:]}")
     for line in res.stderr.splitlines():
         if line.startswith("--") or line.startswith("Time in sum"):
-            log(f"  [{device}] {line}")
+            log(f"  [{tag or 'b1'} {device}] {line}")
     stats = {"wall_s": wall}
     m = re.search(r"Time in sum\[s\] ([0-9.]+)", res.stderr)
     stats["time_in_sum_s"] = float(m.group(1))
@@ -221,14 +405,40 @@ def run_filter(d, g_fa, r_fa, device, threads):
                      launches=int(m.group(4)))
         m = re.search(r"superchunks \(m_out 128: (\d+), m_out 512: (\d+)\), "
                       r"their reads \(m_out 128: (\d+), m_out 512: (\d+)\); "
-                      r"seeded by the workers: (\d+) with N, (\d+) "
+                      r"seeded on the host: (\d+) with N, (\d+) "
                       r"overflowing", res.stderr)
         stats.update(superchunks=[int(m.group(1)), int(m.group(2))],
                      tier_reads=[int(m.group(3)), int(m.group(4))],
                      host_n=int(m.group(5)), host_overflow=int(m.group(6)))
+        m = re.search(r"--Device index \(cuda\): (built on the card|uploaded)"
+                      r"(?: \(genome has N\))? in ([0-9.]+) s(?:, build kernel "
+                      r"launches (\d+))?", res.stderr)
+        stats.update(index=m.group(1), index_s=float(m.group(2)),
+                     build_launches=int(m.group(3) or 0))
+    m = re.search(r"extended on the device (\d+) of (\d+) eligible, kernel "
+                  r"launches (\d+); host re-map: (\d+) with N, (\d+) over "
+                  r"\d+ hits, (\d+) overflowing C, (\d+) re-apx", res.stderr)
+    if m:
+        stats.update(zip(("extended", "eligible", "ext_launches", "remap_n",
+                          "remap_hits", "remap_overflow", "remap_reapx"),
+                         map(int, m.groups())))
     with open(prefix + ".sam", "rb") as fh:
         digest = hashlib.sha256(fh.read()).hexdigest()
     return digest, stats
+
+
+def check_seeding_run(st) -> None:
+    """The seeding counts of one cuda run."""
+    if not st["seeded"] or st["mapped_with_device_seeds"] != st["seeded"]:
+        raise AssertionError(f"seeded reads {st['seeded']}, mapped with "
+                             f"device seeds {st['mapped_with_device_seeds']}: "
+                             "device seeds were not used")
+    if sum(st["superchunks"]) != st["launches"]:
+        raise AssertionError("superchunks seeded != seed kernel launches")
+    if st["seeded"] + st["host_n"] + st["host_overflow"] != sum(
+            st["tier_reads"]):
+        raise AssertionError("device seeding does not account for every "
+                             "eligible read")
 
 
 def main() -> int:
@@ -246,7 +456,6 @@ def main() -> int:
         print(f"chip_smoke: linear_tpu_torch is not importable: {e}",
               file=sys.stderr)
         return 1
-    import numpy as np
 
     smi = nvidia_smi()
     log(f"card: {smi}")
@@ -266,6 +475,7 @@ def main() -> int:
     os.makedirs(d, exist_ok=True)
     t0 = time.time()
     genome, g_fa, r_fa = make_corpus(d)
+    g_nf, gnf_fa = make_nfree(d, genome)
     log(f"corpus: genome {len(genome)} b ({int((genome == 4).sum())} N), "
         f"{N_READS} reads: {time.time() - t0:.2f} s")
     threads = os.cpu_count() or 8
@@ -279,9 +489,12 @@ def main() -> int:
     checks = check_kernel(index, genome, np.random.default_rng(SEED + 1))
     del index
     torch.cuda.empty_cache()
+    ext_checks = check_extend(g_fa, r_fa, threads)
+    torch.cuda.empty_cache()
+    db_check = check_devbuild(g_nf, threads)
 
-    # the main path, in fresh processes (the pipeline forks before CUDA),
-    # in turns: cuda, host, host, cuda
+    # the main paths, in fresh processes (the pipeline forks before CUDA).
+    # -b 1 in turns: cuda, host, host, cuda
     runs = [(dev, *run_filter(d, g_fa, r_fa, dev, threads))
             for dev in ("cuda", "host", "host", "cuda")]
     for dev, _, st in runs:
@@ -295,24 +508,55 @@ def main() -> int:
     if not st_cuda.get("launches"):
         raise AssertionError("the seed kernel was never launched on the main path")
     for dev, _, st in runs:
-        if dev != "cuda":
-            continue
-        if not st["seeded"] or st["mapped_with_device_seeds"] != st["seeded"]:
-            raise AssertionError(f"seeded reads {st['seeded']}, mapped with "
-                                 f"device seeds {st['mapped_with_device_seeds']}: "
-                                 "device seeds were not used")
-        if sum(st["superchunks"]) != st["launches"]:
-            raise AssertionError("superchunks seeded != seed kernel launches")
-        if st["seeded"] + st["host_n"] + st["host_overflow"] != sum(
-                st["tier_reads"]):
-            raise AssertionError("device seeding does not account for every "
-                                 "eligible read")
+        if dev == "cuda":
+            check_seeding_run(st)
+            if st["index"] != "uploaded":
+                raise AssertionError("a genome with N must upload its index")
     log(f"seeded share: {st_cuda['seeded'] / N_READS:.4f} of the reads seeded "
-        f"on the card and mapped with those seeds; the workers seeded "
+        f"on the card and mapped with those seeds; the host seeded "
         f"{st_cuda['host_n']} reads with N and {st_cuda['host_overflow']} "
         f"overflowing m_out 512")
 
-    main_check = checks[0]
+    # -b 0, the serial loop with the extension on the card
+    b0 = {dev: run_filter(d, g_fa, r_fa, dev, threads, ("-b", "0"), "b0")
+          for dev in ("cuda", "host")}
+    for dev, (_, st) in b0.items():
+        log(f"filter -b 0 --device {dev} -t {threads}: {json.dumps(st)}; "
+            f"{N_READS / st['time_in_sum_s']:.2f} reads/s end to end")
+    if b0["cuda"][0] != b0["host"][0]:
+        raise AssertionError("-b 0 SAM of --device cuda differs from host")
+    st_b0 = b0["cuda"][1]
+    check_seeding_run(st_b0)
+    if not (st_b0["ext_launches"] > 0 and st_b0["extended"] > 0):
+        raise AssertionError("-b 0 --device cuda did not extend on the card")
+    if st_b0["eligible"] != sum(st_b0[k] for k in (
+            "extended", "remap_n", "remap_hits", "remap_overflow",
+            "remap_reapx")):
+        raise AssertionError("the -b 0 extension does not account for every "
+                             "eligible read")
+    log(f"SAM -b 0 --device cuda == host (sha256 {b0['cuda'][0]}); extended "
+        f"on the card {st_b0['extended']} of {st_b0['eligible']} eligible "
+        f"reads in {st_b0['ext_launches']} launches")
+
+    # -b 1 on the N-free genome: the card builds the index
+    nf = {dev: run_filter(d, gnf_fa, r_fa, dev, threads, (), "nfree")
+          for dev in ("cuda", "host")}
+    for dev, (_, st) in nf.items():
+        log(f"filter N-free genome --device {dev} -t {threads}: "
+            f"{json.dumps(st)}; {N_READS / st['time_in_sum_s']:.2f} reads/s "
+            f"end to end")
+    if nf["cuda"][0] != nf["host"][0]:
+        raise AssertionError("N-free SAM of --device cuda differs from host")
+    st_nf = nf["cuda"][1]
+    check_seeding_run(st_nf)
+    if st_nf["index"] != "built on the card" or not st_nf["build_launches"]:
+        raise AssertionError("the N-free genome's index was not built on "
+                             "the card")
+    log(f"SAM N-free --device cuda == host (sha256 {nf['cuda'][0]}); index "
+        f"built on the card in {st_nf['index_s']} s with "
+        f"{st_nf['build_launches']} build kernel launches")
+
+    ext_main = ext_checks[0]
     print(json.dumps({"kernels": [{
         "name": "seed_superchunk",
         "route": "cuda",
@@ -320,9 +564,30 @@ def main() -> int:
         "replaces": "linear_tpu/ops/seeding.py:443",
         "launches": st_cuda["launches"],
         "max_abs_err": max(c["max_abs_err"] for c in checks),
-        "ms": main_check["ms"],
-        "plain_ms": main_check["plain_ms"],
+        "ms": checks[0]["ms"],
+        "plain_ms": checks[0]["plain_ms"],
         "shapes": checks,
+    }, {
+        "name": "filter_extend",
+        "route": "cuda",
+        "source": "linear_tpu_torch/ops/csrc/filter_extend.cu",
+        "replaces": "linear_tpu/ops/extend_dev.py:537",
+        "launches": st_b0["ext_launches"],
+        "max_abs_err": max(c["max_abs_err"] for c in ext_checks),
+        "ms": ext_main["ms"],
+        "plain_ms": ext_main["plain_ms"],
+        "shapes": ext_checks,
+    }, {
+        "name": "devbuild",
+        "route": "cuda",
+        "source": "linear_tpu_torch/ops/csrc/devbuild.cu",
+        "replaces": "linear_tpu/ops/devbuild.py:44",
+        "launches": st_nf["build_launches"],
+        "max_abs_err": db_check["max_abs_err"],
+        "ms": db_check["ms"],
+        "plain_ms": db_check["plain_ms"],
+        "build_s": db_check["build_s"],
+        "upload_s": db_check["upload_s"],
     }]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

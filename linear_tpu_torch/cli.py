@@ -4,10 +4,13 @@
 Usage: python -m linear_tpu_torch filter [OPTIONS] read.fa/fastq(.gz) genome.fa
 Multi-file: python -m linear_tpu_torch filter r1.fa r2.fa x g1.fa g2.fa
 
---device host|cpu|cuda: who seeds the reads. host: the native engine in
-each worker; cpu: the plain PyTorch seeding; cuda: the hand-written CUDA
-kernel. cuda never falls back: without a card the run exits 1. Options the
-port does not run yet exit 1 and name their ROADMAP.md item.
+--device host|cpu|cuda: who runs the device kernels. host: none, the
+native engine does all the work; cpu: the plain PyTorch versions; cuda: the
+hand-written CUDA kernels. On a device the reads are seeded there, the
+DIndex tables are built there when no genome has N (uploaded from the host
+build otherwise), and with -b 0 the dense-window extension runs there too.
+cuda never falls back: without a card the run exits 1. Options the port
+does not run yet exit 1 and name their ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -48,8 +51,9 @@ def build_parser() -> argparse.ArgumentParser:
     f.add_argument("--save-index", default="")
     f.add_argument("--load-index", default="")
     f.add_argument("--device", choices=["host", "cpu", "cuda"], default="host",
-                   help="who seeds: the native engine (host), the plain "
-                        "PyTorch seeding (cpu) or the CUDA kernel (cuda)")
+                   help="who runs the device kernels (seeding, index build, "
+                        "-b 0 extension): none (host), their plain PyTorch "
+                        "versions (cpu) or the CUDA kernels (cuda)")
     return p
 
 
@@ -124,21 +128,34 @@ def run_filter(args) -> int:
         # the workers have forked: torch may be imported and the device
         # initialised now
         t_dev = time.time()
+        from .ops import devbuild as DB
+        from .ops import extend_dev as ED
         from .ops import seeding as SD
+        from .parallel.pipeline import PipeCounters
 
         t_import = time.time() - t_dev
+        DB.launches = 0
         try:
             mapper._ensure_dev_index()
         except RuntimeError as e:
             print(f"E[dev]: {e}", file=sys.stderr)
-            pipeline.close()
+            if pipeline is not None:
+                pipeline.close()
             return 1
         t_ready = time.time() - t_dev
         print(f"--Device ready Elapsed time[s] {t_ready:.2f} (import torch "
-              f"{t_import:.2f}, device start, kernel load and index upload "
+              f"{t_import:.2f}, device start, kernel load and device index "
               f"{t_ready - t_import:.2f})", file=sys.stderr)
+        if mapper.dev_index_source == "built":
+            print(f"--Device index ({args.device}): built on the card in "
+                  f"{mapper.dev_index_seconds:.3f} s, build kernel launches "
+                  f"{DB.launches}", file=sys.stderr)
+        else:
+            print(f"--Device index ({args.device}): uploaded (genome has N) "
+                  f"in {mapper.dev_index_seconds:.3f} s", file=sys.stderr)
         SD.launches = 0
-    runs = []  # the pipeline's PipeCounters of each read file
+        ED.launches = 0
+    runs = []  # PipeCounters of each read file (pipeline or serial loop)
 
     f_apf = args.output_type & 1
     f_sam = args.output_type & 2
@@ -181,9 +198,12 @@ def run_filter(args) -> int:
                 emit(br.block, br.cords_str, br.sam, br.n)
             runs.append(pipeline.counters)
         else:
+            counters = PipeCounters() if seeding else None
             for block in seqio.read_blocks(rpath):
-                cs, _, sam = mapper.map_block(block)
+                cs, _, sam = mapper.map_block(block, counters=counters)
                 emit(block, cs, sam, len(block))
+            if seeding:
+                runs.append(counters)
         if not shared:
             for of in (of_sam, of_apf):
                 if of:
@@ -214,7 +234,7 @@ def run_filter(args) -> int:
               f"seeds {total('shipped_seeded')}, seed kernel launches "
               f"{SD.launches}", file=sys.stderr)
         print(f"--Device superchunks ({per_tier('superchunks')}), their "
-              f"reads ({per_tier('tier_reads')}); seeded by the workers: "
+              f"reads ({per_tier('tier_reads')}); seeded on the host: "
               f"{total('host_n')} with N, {total('host_overflow')} "
               f"overflowing m_out {mapper.SEED_M_OUT2}", file=sys.stderr)
         for c in runs:
@@ -222,6 +242,14 @@ def run_filter(args) -> int:
                 print(f"--Device seeds landed from {c.seed_first_s:.3f} s to "
                       f"{c.seed_last_s:.3f} s into the read file's run",
                       file=sys.stderr)
+        if not args.bal_flag:
+            ec = mapper.ext_counters
+            print(f"--Device extension ({args.device}): extended on the "
+                  f"device {ec.extended} of {ec.eligible} eligible, kernel "
+                  f"launches {ED.launches}; host re-map: {ec.host_n} with N, "
+                  f"{ec.host_hits} over {mapper.EXT_H} hits, "
+                  f"{ec.host_overflow} overflowing C, {ec.host_reapx} re-apx",
+                  file=sys.stderr)
     print(f"Time in sum[s] {time.time() - t0:.2f}", file=sys.stderr)
     return 0
 

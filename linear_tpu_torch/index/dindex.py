@@ -7,8 +7,9 @@ src/index_util.cpp:1628-1803):
   hs  : uint64[sum]          cords (id[10] | x+2^20 [30] | YValue [20] | strand@61)
                              per bucket sorted ascending by the full u64 value
 
-The port builds it with the native builder only (lt_engine's
+On the host the port builds it with the native builder (lt_engine's
 le_build_index); linear_tpu keeps the numpy builder and the query oracle.
+For N-free genomes ops.devbuild builds the same tables on the device.
 """
 from __future__ import annotations
 
@@ -43,6 +44,16 @@ class DIndex:
                              np.uint64(1) << (nzx & 63).astype(np.uint64))
             self.nz = bm
         return self.nz
+
+
+def thread_blocks(seq_len: int, span: int, threads: int) -> List[tuple]:
+    """The reference's per-genome OpenMP block decomposition
+    (src/index_util.cpp:1650-1659): bounds[t] = len // threads * t for
+    t < threads, bounds[threads] = len - span; block t scans
+    [bounds[t] + span, bounds[t + 1] - span)."""
+    bounds = [seq_len // threads * t for t in range(threads)]
+    bounds.append(seq_len - span)
+    return [(bounds[t] + span, bounds[t + 1] - span) for t in range(threads)]
 
 
 def build_dindex(seqs: List[np.ndarray], threads: int) -> DIndex:

@@ -1,19 +1,25 @@
 """Mapping orchestration: genomes + reads -> cords -> SAM/APF.
 
 Counterpart of linear_tpu.map.mapper for the slice the port runs: DIndex
-(-i 1), 2_48 features (-f 2), the native per-read engine, and device
-seeding through ops.seeding. The per-read residual (chaining, extension,
-gaps, SAM) is the native engine in every mode; the device only seeds.
+(-i 1), 2_48 features (-f 2), the native per-read engine, device seeding
+through ops.seeding, and in the serial -b 0 loop the dense-window
+extension (_filterHits + path_dst_2) through ops.extend_dev. The rest of
+the per-read work (chaining, the apx tail, gaps, SAM) is the native engine
+in every mode. On a genome without N the device builds its own DIndex
+tables (ops.devbuild); otherwise the host build is uploaded.
 
 Devices (`device`):
-  host  the native engine seeds each read itself;
-  cpu   the plain PyTorch seeding on CPU tensors;
-  cuda  the hand-written CUDA kernel.
-Nothing here falls back from a device to the host: a failed upload or
-launch raises.
+  host  the native engine does all of it;
+  cpu   the plain PyTorch versions of the kernels on CPU tensors;
+  cuda  the hand-written CUDA kernels.
+Nothing here falls back from a device to the host: a failed build, upload
+or launch raises. Reads that the algorithm itself maps on the host (reads
+with N, too many hits, overflowing cords, the re-apx path) are counted by
+reason.
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import List, Optional
 
@@ -88,10 +94,22 @@ def unported(cfg: MapperConfig, device: str) -> str:
         return (f"-ot {cfg.output_type}: BAM and pbsv-BAM output (bits 4 "
                 "and 8) are not ported yet (ROADMAP.md, port item 'BAM and "
                 "pbsv output')")
-    if not cfg.bal_flag and device != "host":
-        return (f"-b 0 with --device {device} is not ported yet "
-                "(ROADMAP.md, port item '-b 0 on the device')")
     return ""
+
+
+@dataclass
+class ExtendCounters:
+    """What the -b 0 device extension did with the reads of a run. Every
+    eligible read (200 < length <= MAX_SEED_READ_LEN, chain mode) is either
+    extended on the device and finished from its cords, or mapped on the
+    host for exactly one of the four reasons."""
+
+    eligible: int = 0
+    extended: int = 0
+    host_n: int = 0         # N bases (the 2-bit read rows cannot carry them)
+    host_hits: int = 0      # more than Mapper.EXT_H pre-filter hits
+    host_overflow: int = 0  # a cord push would have passed slot C
+    host_reapx: int = 0     # apx_finish: the y-gaps cover >= 0.7 of the read
 
 
 class Mapper:
@@ -107,6 +125,12 @@ class Mapper:
     # keep the mostly-padding (rows, m_out) output small
     SEED_M_OUT2 = 512
     SEED_SUPERCHUNK2 = 256
+    # -b 0 extension: padded bases per kernel launch (rows x pad: 1024
+    # reads at pad 8192; the scratch and the plain version's tensors grow
+    # with it), and the pre-filter hits cap (JAX's EXT_H); reads with more
+    # hits are mapped on the host
+    EXT_BASES = 1 << 23
+    EXT_H = 256
 
     def __init__(self, genome_paths: List[str],
                  cfg: Optional[MapperConfig] = None, device: str = "host"):
@@ -125,6 +149,12 @@ class Mapper:
         self.f2: List[np.ndarray] = []  # per-genome 2_48 feature scripts
         self.index: Optional[DI.DIndex] = None
         self._dev_index = None
+        self._dev_gfeats = None
+        # how the device index was made ("built" on the device, or
+        # "uploaded" from the host build) and the seconds it took
+        self.dev_index_source = ""
+        self.dev_index_seconds = 0.0
+        self.ext_counters = ExtendCounters()
         self._nengine = None  # lazy per-process native engine
 
     def create_features(self) -> None:
@@ -145,15 +175,19 @@ class Mapper:
     # ------------------------------------------------------ device seeding
 
     def _ensure_dev_index(self):
-        """The DIndex tables on the device, uploaded on first use, and on
-        cuda the kernel library built and loaded. Called only after the
-        pipeline has forked its workers: that is when CUDA may first be
-        initialised. Raises when the device or nvcc is missing."""
+        """The DIndex tables on the device, made on first use, and on cuda
+        the kernel library built and loaded. When no genome has N the
+        device builds the tables itself (ops.devbuild); otherwise the host
+        build is uploaded. `dev_index_source` says which. Called only after
+        the pipeline has forked its workers: that is when CUDA may first be
+        initialised. Raises when the device or nvcc is missing, and when
+        the build on the device fails."""
         if self._dev_index is None:
             if self.device not in ("cpu", "cuda"):
                 raise ValueError(f"device {self.device!r} does not seed")
             import torch
 
+            from ..ops import devbuild as DB
             from ..ops import seeding as SD
 
             if self.device == "cuda":
@@ -163,7 +197,21 @@ class Mapper:
                 from ..ops import _cuda
 
                 _cuda.lib()
-            index = SD.upload_index(self.index.dir, self.index.hs, self.device)
+                # start the CUDA context here, so that dev_index_seconds
+                # times the index alone
+                torch.cuda.synchronize()
+            t0 = time.time()
+            if not any((s == 4).any() for s in self.genomes):
+                index = DB.device_build_to_index(*DB.build_dindex_device(
+                    self.genomes, self.device, self.cfg.threads))
+                self.dev_index_source = "built"
+            else:
+                index = SD.upload_index(self.index.dir, self.index.hs,
+                                        self.device)
+                self.dev_index_source = "uploaded"
+            if self.device == "cuda":
+                torch.cuda.synchronize()
+            self.dev_index_seconds = time.time() - t0
             if self.device == "cuda":
                 # first use of the launch path (kernel module, pinned
                 # buffers, copies) now, not while the workers wait on seeds
@@ -214,6 +262,66 @@ class Mapper:
                     anchors2, _ = seed(part2, self.SEED_M_OUT2)
                     yield self.SEED_M_OUT2, [i for i, _ in part2], anchors2
 
+    def _device_extend_block(self, reads: seqio.SeqSet, hits_list: List):
+        """The device's _filterHits + path_dst_2 (ops.extend_dev) for the
+        reads of a block whose hits_list entry is not None (the eligible
+        reads): returns per-read uint64 cords arrays, None for the reads the
+        host maps (N bases, more than EXT_H hits, overflowing cords), which
+        ext_counters counts by reason. Consecutive reads form batches of at
+        most EXT_BASES padded bases (or one read), at the pad of their
+        longest read; all are launched before any is collected. The cords
+        do not depend on the batching."""
+        import torch
+
+        from ..ops import extend_dev as ED
+
+        if self._dev_gfeats is None:
+            self._dev_gfeats = ED.upload_genome_feats(self.f2, self.device)
+        ec = self.ext_counters
+        out: List = [None] * len(reads.seqs)
+        todo = []
+        for i, (r, h) in enumerate(zip(reads.seqs, hits_list)):
+            if h is None:
+                continue
+            ec.eligible += 1
+            if (r == 4).any():
+                ec.host_n += 1
+            elif len(h) > self.EXT_H:
+                ec.host_hits += 1
+            else:
+                todo.append(i)
+        batches, chunk, pad = [], [], 0
+        for i in todo:
+            p = 1 << max(int(np.ceil(np.log2(len(reads.seqs[i])))), 10)
+            if chunk and (len(chunk) + 1) * max(pad, p) > self.EXT_BASES:
+                batches.append((chunk, pad))
+                chunk, pad = [], 0
+            chunk.append(i)
+            pad = max(pad, p)
+        if chunk:
+            batches.append((chunk, pad))
+        pending = []
+        for chunk, pad in batches:
+            packed, lens = ED.pack_rows([reads.seqs[i] for i in chunk], pad)
+            hm = np.zeros((len(chunk), self.EXT_H), dtype=np.uint64)
+            hn = np.zeros((len(chunk),), dtype=np.int32)
+            for k, i in enumerate(chunk):
+                hm[k, : len(hits_list[i])] = hits_list[i]
+                hn[k] = len(hits_list[i])
+            args = [torch.from_numpy(a).to(self.device)
+                    for a in (packed, lens, hm.view(np.int64), hn)]
+            pending.append((chunk, ED.filter_extend(
+                *args, self._dev_gfeats, self.EXT_H + pad // 32)))
+        for chunk, res in pending:
+            cords, ncords, ovf = (t.cpu().numpy() for t in res)
+            cords = cords.view(np.uint64)
+            for k, i in enumerate(chunk):
+                if ovf[k]:
+                    ec.host_overflow += 1
+                else:
+                    out[i] = cords[k, : ncords[k]].copy()
+        return out
+
     # ------------------------------------------------------ native engine
 
     def reset_gap_parms(self) -> None:
@@ -260,17 +368,55 @@ class Mapper:
             tids.extend([t] * (size2 + 1 if t < r else size2))
         return tids
 
-    def map_block(self, reads: seqio.SeqSet):
-        """Map a block of reads in this process, seeding on the host
-        (the serial -b 0 / -b 1 block loop); returns (all_cords_str,
-        all_cords_end, sam_text)."""
+    def map_block(self, reads: seqio.SeqSet, counters=None):
+        """Map a block of reads in this process (the serial -b 0 block
+        loop); returns (all_cords_str, all_cords_end, sam_text). On a
+        device (JAX's map_block, linear_tpu/map/mapper.py:660-709): the
+        device seeds the block; in chain mode (-c 1) the native first pass
+        gives each eligible read its pre-filter hits, the device extends
+        them, and the engine finishes each read from its cords
+        (apx_finish). Reads the device did not extend, or whose finish
+        asks for the re-apx path, get the full native map with their device
+        seeds. `counters` (a pipeline.PipeCounters) gets the seeding
+        counts."""
+        n = len(reads.seqs)
         if self.cfg.bal_flag == 0:
-            tids = self.static_chunk_tids(len(reads.seqs), self.cfg.threads)
+            tids = self.static_chunk_tids(n, self.cfg.threads)
         else:
-            tids = [0] * len(reads.seqs)
+            tids = [0] * n
+        seeds: List = [None] * n
+        dev_cords: List = [None] * n
+        if self.device != "host":
+            ne = self.native_engine()
+            for m_out, idxs, anchors in self._device_seed_stream2(
+                    [(0, reads.seqs)]):
+                for i, a in zip(idxs, anchors):
+                    seeds[i] = a
+                if counters is not None:
+                    counters.add_superchunk(m_out, m_out == self.SEED_M_OUT,
+                                            idxs, anchors)
+            if self.cfg.apx_chain_flag:
+                hits = [ne.apx_hits(r, s)
+                        if THD_MIN_READ_LEN < len(r) <= MAX_SEED_READ_LEN
+                        else None for r, s in zip(reads.seqs, seeds)]
+                dev_cords = self._device_extend_block(reads, hits)
+        if counters is not None:
+            counters.fetched += n
+            counters.shipped_seeded += sum(s is not None for s in seeds)
         all_str, all_end, sam_parts = [], [], []
-        for rid, read, tid in zip(reads.ids, reads.seqs, tids):
-            cs, ce, sam = self.native_map_read(read, rid, tid=tid)
+        for rid, read, tid, s, dc in zip(reads.ids, reads.seqs, tids, seeds,
+                                         dev_cords):
+            res = None
+            if dc is not None:
+                res = self.native_engine().apx_finish(read, rid, dc, tid=tid)
+                if res is None:
+                    self.ext_counters.host_reapx += 1
+                else:
+                    self.ext_counters.extended += 1
+                    res = ([int(c) for c in res[0]], [int(c) for c in res[1]],
+                           res[2])
+            cs, ce, sam = res or self.native_map_read(read, rid, seeds=s,
+                                                      tid=tid)
             all_str.append(cs)
             all_end.append(ce)
             sam_parts.append(sam)

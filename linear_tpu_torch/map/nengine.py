@@ -3,7 +3,10 @@
 Counterpart of linear_tpu.map.nengine. The engine runs the exact per-read
 pipeline — chaining DP, dense window extension, gap/SV resolution, cords ->
 CIGAR/SAM — either seeding the read itself or taking anchors from the
-device seeding (ops.seeding). The library is linear_tpu/native/lt_engine.cpp,
+device seeding (ops.seeding). For the -b 0 device path it also splits a
+read around the extension: apx_hits runs the first pass up to the
+pre-filter hits, the device extends them (ops.extend_dev), and apx_finish
+takes the cords from there. The library is linear_tpu/native/lt_engine.cpp,
 compiled by linear_tpu_torch.native.
 """
 from __future__ import annotations
@@ -60,6 +63,21 @@ def engine_lib():
                 C.c_char_p,                     # rid
                 C.c_void_p, C.c_int64,          # seeds, n_seeds
                 C.c_int, C.c_int,               # tid, do_output
+                C.POINTER(C.c_void_p), C.POINTER(C.c_void_p),  # out cs/ce
+                C.POINTER(C.c_int64),
+                C.POINTER(C.c_char_p), C.POINTER(C.c_int64),
+            ]
+            lib.le_apx_hits.restype = C.c_int
+            lib.le_apx_hits.argtypes = [
+                C.c_void_p, C.c_void_p, C.c_int64,   # engine, read, len
+                C.c_void_p, C.c_int64,               # seeds, n_seeds
+                C.POINTER(C.c_void_p), C.POINTER(C.c_int64),  # out hits
+            ]
+            lib.le_apx_finish.restype = C.c_int
+            lib.le_apx_finish.argtypes = [
+                C.c_void_p, C.c_void_p, C.c_int64, C.c_char_p,
+                C.c_void_p, C.c_int64,               # cords, n_cords
+                C.c_int, C.c_int,                    # tid, do_output
                 C.POINTER(C.c_void_p), C.POINTER(C.c_void_p),  # out cs/ce
                 C.POINTER(C.c_int64),
                 C.POINTER(C.c_char_p), C.POINTER(C.c_int64),
@@ -148,6 +166,34 @@ def pack_superchunk_native(reads: list, pad_len: int, rows: int):
     return wire, n_mask.astype(bool)
 
 
+def _u64_copy(ptr: C.c_void_p, n: int) -> np.ndarray:
+    """numpy copy of n uint64 at an engine-owned pointer."""
+    if not n:
+        return np.zeros(0, dtype=np.uint64)
+    return np.ctypeslib.as_array(C.cast(ptr, C.POINTER(C.c_uint64)),
+                                 shape=(n,)).copy()
+
+
+class _ReadOut:
+    """The out-parameters of le_map_read / le_apx_finish (engine-owned
+    buffers, valid until the next call on the engine)."""
+
+    def __init__(self):
+        self.cs, self.ce, self.n = C.c_void_p(), C.c_void_p(), C.c_int64()
+        self.sam, self.sam_n = C.c_char_p(), C.c_int64()
+
+    def refs(self):
+        return (C.byref(self.cs), C.byref(self.ce), C.byref(self.n),
+                C.byref(self.sam), C.byref(self.sam_n))
+
+    def result(self):
+        """(cords_str, cords_end) uint64 copies and the SAM text."""
+        sam = (C.string_at(self.sam, self.sam_n.value).decode()
+               if self.sam_n.value else "")
+        return (_u64_copy(self.cs, self.n.value),
+                _u64_copy(self.ce, self.n.value), sam)
+
+
 class NativeEngine:
     """One engine instance per process; keeps the backing numpy arrays
     alive for the engine's lifetime (the engine stores raw pointers)."""
@@ -196,27 +242,45 @@ class NativeEngine:
         else:
             seeds = np.ascontiguousarray(seeds, dtype=np.uint64)
             seeds_ptr, n_seeds = seeds.ctypes.data, len(seeds)
-        cs_p = C.c_void_p()
-        ce_p = C.c_void_p()
-        n_out = C.c_int64()
-        sam_p = C.c_char_p()
-        sam_n = C.c_int64()
+        out = _ReadOut()
         self._lib.le_map_read(
             self._h, read.ctypes.data, len(read), rid.encode(),
-            seeds_ptr, n_seeds, tid, 1,
-            C.byref(cs_p), C.byref(ce_p), C.byref(n_out),
-            C.byref(sam_p), C.byref(sam_n))
-        n = n_out.value
-        if n:
-            cs = np.ctypeslib.as_array(
-                C.cast(cs_p, C.POINTER(C.c_uint64)), shape=(n,)).copy()
-            ce = np.ctypeslib.as_array(
-                C.cast(ce_p, C.POINTER(C.c_uint64)), shape=(n,)).copy()
+            seeds_ptr, n_seeds, tid, 1, *out.refs())
+        return out.result()
+
+    def apx_hits(self, read: np.ndarray,
+                 seeds: Optional[np.ndarray] = None) -> np.ndarray:
+        """The first apx pass up to the PRE-filter hits (uint64 copy, slot 0
+        the FLAG_END header; empty for reads of 200 bases or fewer): what
+        the device's _filterHits + path_dst_2 start from. seeds as in
+        map_read."""
+        read = np.ascontiguousarray(read, dtype=np.uint8)
+        if seeds is None:
+            seeds_ptr, n_seeds = None, -1
         else:
-            cs = np.zeros(0, dtype=np.uint64)
-            ce = np.zeros(0, dtype=np.uint64)
-        sam = C.string_at(sam_p, sam_n.value).decode() if sam_n.value else ""
-        return cs, ce, sam
+            seeds = np.ascontiguousarray(seeds, dtype=np.uint64)
+            seeds_ptr, n_seeds = seeds.ctypes.data, len(seeds)
+        h_p = C.c_void_p()
+        n_out = C.c_int64()
+        self._lib.le_apx_hits(self._h, read.ctypes.data, len(read), seeds_ptr,
+                              n_seeds, C.byref(h_p), C.byref(n_out))
+        return _u64_copy(h_p, n_out.value)
+
+    def apx_finish(self, read: np.ndarray, rid: str, cords: np.ndarray,
+                   tid: int = 0):
+        """Finish a read from the device's path_dst_2 cords: the apx tail,
+        the gap phase on thread `tid`'s GapParms, and the SAM text. Returns
+        (cords_str, cords_end, sam) as map_read, or None when the read needs
+        the full host re-map (the re-apx path: the y-gaps cover >= 0.7 of
+        the read)."""
+        read = np.ascontiguousarray(read, dtype=np.uint8)
+        cords = np.ascontiguousarray(cords, dtype=np.uint64)
+        out = _ReadOut()
+        rc = self._lib.le_apx_finish(
+            self._h, read.ctypes.data, len(read), rid.encode(),
+            cords.ctypes.data if len(cords) else None, len(cords), tid, 1,
+            *out.refs())
+        return None if rc else out.result()
 
     def map_block(self, reads, rids, seeds_list=None, tid: int = 0) -> str:
         """Map a chunk of reads with ONE ctypes crossing; returns the

@@ -1,10 +1,13 @@
 """Build and bind the port's CUDA kernels.
 
-The sources in ops/csrc/ are compiled with nvcc for sm_90a into one shared
-library with a plain C interface (no PyTorch headers, so the build takes
-seconds), under linear_tpu_torch/_build/, at first use. ctypes binds it;
-pointers come from Tensor.data_ptr() and the stream from PyTorch's current
-stream. Nothing here runs when the module is imported.
+The sources in ops/csrc/ are compiled with nvcc for sm_90a, one nvcc per
+source, all started together, and linked into one shared library with a
+plain C interface (no PyTorch headers, so the build takes seconds), under
+linear_tpu_torch/_build/, at first use. ctypes binds it; pointers come from
+Tensor.data_ptr() and the stream from PyTorch's current stream. The
+wrappers check device, dtype, shape and contiguity, raise on a refused
+launch, and never synchronise. Nothing here runs when the module is
+imported.
 """
 from __future__ import annotations
 
@@ -25,7 +28,7 @@ CSRC = os.path.join(_PKG, "ops", "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 LIB_NAME = "libltcuda.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -65,22 +68,34 @@ def build() -> str:
                 with open(info) as fh:
                     ptxas_info = fh.read()
             return so
-        fd, tmp = tempfile.mkstemp(prefix=LIB_NAME + ".", suffix=".tmp",
-                                   dir=BUILD_DIR)
-        os.close(fd)
+        tmpdir = tempfile.mkdtemp(prefix=LIB_NAME + ".", dir=BUILD_DIR)
         t0 = time.time()
         try:
-            res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs],
+            nvcc = _nvcc()
+            objs = [os.path.join(tmpdir, os.path.basename(s) + ".o")
+                    for s in srcs]
+            procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", s, "-o", o],
+                                      stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE, text=True)
+                     for s, o in zip(srcs, objs)]
+            outs = [p.communicate() for p in procs]
+            failed = [(s, out) for s, p, out in zip(srcs, procs, outs)
+                      if p.returncode != 0]
+            if failed:
+                raise RuntimeError("nvcc failed to build the CUDA kernels:\n"
+                                   + "\n".join(f"{s}:\n{o[0][-3000:]}{o[1][-3000:]}"
+                                               for s, o in failed))
+            tmp = os.path.join(tmpdir, LIB_NAME)
+            res = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
                                  capture_output=True, text=True)
             if res.returncode != 0:
-                raise RuntimeError("nvcc failed to build the CUDA kernels:\n"
+                raise RuntimeError("nvcc failed to link the CUDA kernels:\n"
                                    + res.stdout[-4000:] + res.stderr[-4000:])
             os.replace(tmp, so)
         finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
+            shutil.rmtree(tmpdir, ignore_errors=True)
         build_seconds = time.time() - t0
-        ptxas_info = res.stderr
+        ptxas_info = "".join(err for _, err in outs)
         with open(info, "w") as fh:
             fh.write(ptxas_info)
     return so
@@ -95,6 +110,18 @@ def lib() -> ctypes.CDLL:
             dll.lt_seed_superchunk.restype = ctypes.c_int
             dll.lt_seed_superchunk.argtypes = [
                 p, i64, i64, p, i64, p, i64, ctypes.c_int, ctypes.c_int, p, p]
+            dll.lt_filter_extend.restype = ctypes.c_int
+            dll.lt_filter_extend.argtypes = [
+                p, i64, i64, p, p, i64, p, p, p, p, i64, i64, i64,
+                p, p, p, p, p, p]
+            dll.lt_sample_states.restype = ctypes.c_int
+            dll.lt_sample_states.argtypes = [p, i64, p, i64, p, p, p, p]
+            dll.lt_devbuild_count.restype = ctypes.c_int
+            dll.lt_devbuild_count.argtypes = [
+                p, p, i64, i64, i64, p, i64, p, p, p, p, p, p]
+            dll.lt_devbuild_scatter.restype = ctypes.c_int
+            dll.lt_devbuild_scatter.argtypes = [
+                p, p, p, p, p, p, i64, p, i64, p, p]
             dll.lt_cuda_error_string.restype = ctypes.c_char_p
             dll.lt_cuda_error_string.argtypes = [ctypes.c_int]
             _LIB = dll
@@ -133,13 +160,124 @@ def seed_superchunk(wire: torch.Tensor, dir_start: torch.Tensor,
     if dir_start.numel() < 2 or hs.numel() < 1:
         raise ValueError("empty index tables")
     out = torch.empty((rows, m_out + 1), dtype=torch.int64, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib().lt_seed_superchunk(
+    _launch("seed_superchunk", dev, lib().lt_seed_superchunk,
             wire.data_ptr(), rows, row_bytes, dir_start.data_ptr(),
             dir_start.numel(), hs.data_ptr(), hs.numel(), int(cap), int(m_out),
-            out.data_ptr(), stream)
-    if rc:
-        raise RuntimeError("seed_superchunk launch failed: "
-                           + lib().lt_cuda_error_string(rc).decode())
+            out.data_ptr())
     return out
+
+
+def _launch(name: str, dev: torch.device, fn, *args) -> None:
+    """Call a launcher of the library on dev's current stream (its last
+    argument); raise if it reports a refused launch."""
+    with torch.cuda.device(dev):
+        rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    if rc:
+        raise RuntimeError(f"{name} launch failed: "
+                           + lib().lt_cuda_error_string(rc).decode())
+
+
+def _cuda_device(t: torch.Tensor, what: str) -> torch.device:
+    if t.device.type != "cuda":
+        raise ValueError(f"the CUDA {what} kernel needs CUDA tensors, got "
+                         f"{t.device}")
+    return t.device
+
+
+def filter_extend(packed: torch.Tensor, lens: torch.Tensor,
+                  hits: torch.Tensor, n_hits: torch.Tensor,
+                  gf_cat: torch.Tensor, gf_off: torch.Tensor,
+                  gf_rows: torch.Tensor, C: int, R: int):
+    """Launch csrc/filter_extend.cu: packed (B, pad/4) uint8, lens (B,)
+    int64, hits (B, H) int64, n_hits (B,) int32, genome features (rows + 8,
+    3) int32 with off / rows (G,) int32 -> (cords (B, C) int64, ncords (B,)
+    int32, ovf (B,) bool). R must cover the pad's feature rows."""
+    dev = _cuda_device(packed, "extension")
+    _check(packed, "packed", torch.uint8, 2, dev)
+    _check(lens, "lens", torch.int64, 1, dev)
+    _check(hits, "hits", torch.int64, 2, dev)
+    _check(n_hits, "n_hits", torch.int32, 1, dev)
+    _check(gf_cat, "gf_cat", torch.int32, 2, dev)
+    _check(gf_off, "gf_off", torch.int32, 1, dev)
+    _check(gf_rows, "gf_rows", torch.int32, 1, dev)
+    B, row_bytes = packed.shape
+    H = hits.shape[1]
+    if lens.shape[0] != B or hits.shape[0] != B or n_hits.shape[0] != B:
+        raise ValueError("packed, lens, hits and n_hits differ in rows")
+    if gf_cat.shape[1] != 3 or gf_off.shape != gf_rows.shape \
+            or gf_off.numel() < 1:
+        raise ValueError("malformed genome feature tables")
+    if H < 1 or C < 1 or R < ((row_bytes * 4 - 48) >> 4) + 1:
+        raise ValueError(f"H {H}, C {C}, R {R} do not fit pad "
+                         f"{row_bytes * 4}")
+    feats = torch.empty((B, 2, R, 3), dtype=torch.int32, device=dev)
+    work = torch.empty((B, H), dtype=torch.int64, device=dev)
+    cords = torch.empty((B, C), dtype=torch.int64, device=dev)
+    ncords = torch.empty((B,), dtype=torch.int32, device=dev)
+    ovf = torch.empty((B,), dtype=torch.bool, device=dev)
+    _launch("filter_extend", dev, lib().lt_filter_extend,
+            packed.data_ptr(), B, row_bytes, lens.data_ptr(), hits.data_ptr(),
+            H, n_hits.data_ptr(), gf_cat.data_ptr(), gf_off.data_ptr(),
+            gf_rows.data_ptr(), gf_off.numel(), int(C), int(R),
+            feats.data_ptr(), work.data_ptr(), cords.data_ptr(),
+            ncords.data_ptr(), ovf.data_ptr())
+    return cords, ncords, ovf
+
+
+def sample_states(genome: torch.Tensor, j: torch.Tensor):
+    """Launch the sample-states kernel of csrc/devbuild.cu: genome (L,)
+    uint8, j (P,) int64 -> (xval, yval, strand), each (P,) int64."""
+    dev = _cuda_device(genome, "devbuild")
+    _check(genome, "genome", torch.uint8, 1, dev)
+    _check(j, "j", torch.int64, 1, dev)
+    out = [torch.empty_like(j) for _ in range(3)]
+    _launch("sample_states", dev, lib().lt_sample_states, genome.data_ptr(),
+            genome.numel(), j.data_ptr(), j.numel(),
+            *(t.data_ptr() for t in out))
+    return tuple(out)
+
+
+def devbuild_count(xv: torch.Tensor, block_start: torch.Tensor, q: int,
+                   omit_block: int, n_buckets: int):
+    """Emission, histogram and bucket offsets of csrc/devbuild.cu. Returns
+    (kept flags (N,) uint8, cursor table (n_buckets + 1,) int32, stats (2,)
+    int64: kept samples, largest kept bucket). The (n_buckets,) histogram
+    is freed on return (stream-ordered)."""
+    dev = _cuda_device(xv, "devbuild")
+    _check(xv, "xv", torch.int64, 1, dev)
+    _check(block_start, "block_start", torch.uint8, 1, dev)
+    n = xv.numel()
+    if block_start.numel() != n:
+        raise ValueError("xv and block_start differ in length")
+    counts = torch.zeros((n_buckets,), dtype=torch.int32, device=dev)
+    tile_a = torch.empty((max(-(-n // 1024), 1),), dtype=torch.int64,
+                         device=dev)
+    tile_b = torch.empty((-(-n_buckets // 4096),), dtype=torch.int64,
+                         device=dev)
+    flag = torch.empty((n,), dtype=torch.uint8, device=dev)
+    cur = torch.empty((n_buckets + 1,), dtype=torch.int32, device=dev)
+    stats = torch.zeros((2,), dtype=torch.int64, device=dev)
+    _launch("devbuild_count", dev, lib().lt_devbuild_count, xv.data_ptr(),
+            block_start.data_ptr(), n, int(q), int(omit_block),
+            counts.data_ptr(), n_buckets, tile_a.data_ptr(), tile_b.data_ptr(),
+            flag.data_ptr(), cur.data_ptr(), stats.data_ptr())
+    return flag, cur, stats
+
+
+def devbuild_scatter(xv, yv, st, jj, gid, flag, cur, n_out: int):
+    """Counting-sort scatter and per-bucket sort of csrc/devbuild.cu: the
+    kept samples' cords (n_out,) int64; `cur` becomes `dir` in place."""
+    dev = _cuda_device(xv, "devbuild")
+    for t, name in ((xv, "xv"), (yv, "yv"), (st, "st"), (jj, "jj"),
+                    (gid, "gid")):
+        _check(t, name, torch.int64, 1, dev)
+        if t.numel() != xv.numel():
+            raise ValueError(f"{name} differs in length from xv")
+    _check(flag, "flag", torch.uint8, 1, dev)
+    _check(cur, "cur", torch.int32, 1, dev)
+    cords = torch.empty((max(n_out, 1),), dtype=torch.int64, device=dev)
+    _launch("devbuild_scatter", dev, lib().lt_devbuild_scatter,
+            xv.data_ptr(), yv.data_ptr(), st.data_ptr(), jj.data_ptr(),
+            gid.data_ptr(), flag.data_ptr(), xv.numel(), cur.data_ptr(),
+            cur.numel() - 1, cords.data_ptr())
+    return cords[:n_out]

@@ -112,6 +112,50 @@ def _unpack_wire(wire: torch.Tensor):
     return seqs, lens
 
 
+def _minimizer(v: torch.Tensor):
+    """The first minimum (strict <) of the nine 13-mer packs, MSB-first,
+    of 42-bit window packs v: (xval, index of the chosen candidate)."""
+    xval = torch.full_like(v, 1 << (2 * WEIGHT))
+    tsel = torch.zeros_like(v)
+    for idx in range(N_OFF):
+        cand = (v >> (2 * (N_OFF - 1 - idx))) & MASK_W
+        better = cand < xval
+        xval = torch.where(better, cand, xval)
+        tsel = torch.where(better, idx, tsel)
+    return xval, tsel
+
+
+def minimizer_xy_at(genome: torch.Tensor, j: torch.Tensor):
+    """Minimizer state of the pure 21-base windows genome[j .. j + 21) of
+    a device genome (L,) of codes 0..3, as the DIndex build samples them
+    (linear_tpu.ops.devbuild._sample_states through _minimizer_xy_batch):
+    strand = (2 * sum(window) - 63 <= 0), xval the first minimum of the nine
+    13-mer packs of the window (or of its reverse complement), yval the 4
+    bases after the chosen forward pack, or the complements of the 4 before
+    the reverse one (a base outside the genome reads 0). Returns (xval,
+    yval, strand), each (P,) int64."""
+    g = genome.to(torch.int64)
+    L = g.shape[0]
+    win = g[(j[:, None] + torch.arange(SPAN, device=g.device)).clamp(0, L - 1)]
+    h = torch.zeros_like(j)
+    crh = torch.zeros_like(j)
+    for t in range(SPAN):
+        h = (h << 2) | win[:, t]
+        crh = crh | ((3 - win[:, t]) << (2 * t))
+    fwd = 2 * win.sum(dim=1) - 3 * SPAN > 0
+    xval, tsel = _minimizer(torch.where(fwd, h, crh))
+
+    def base(p):
+        return torch.where((p >= 0) & (p < L), g[p.clamp(0, L - 1)], 0)
+
+    yval = torch.zeros_like(j)
+    for i in range(4):
+        vf = base(j + tsel + WEIGHT + i)
+        vr = 3 - base(j + SPAN - WEIGHT - 1 - tsel - i)
+        yval = (yval << 2) + torch.where(fwd, vf, vr)
+    return xval, yval, (~fwd).to(torch.int64)
+
+
 def seed_superchunk_reference(wire: torch.Tensor, dir_start: torch.Tensor,
                               hs: torch.Tensor, cap: int,
                               m_out: int) -> torch.Tensor:
@@ -143,15 +187,7 @@ def seed_superchunk_reference(wire: torch.Tensor, dir_start: torch.Tensor,
             w[:, 0] = seqs_p[:, SPAN - 1 - N_MIX + t]
         h = (h << 2) | w
         rc = rc | ((3 - w) << (2 * t))
-    v = torch.where(fwd, h, rc)
-    xval = torch.full((rows, P), 1 << (2 * WEIGHT), dtype=torch.int64,
-                      device=dev)
-    tsel = torch.zeros_like(xval)
-    for idx in range(N_OFF):
-        cand = (v >> (2 * (N_OFF - 1 - idx))) & MASK_W
-        better = cand < xval
-        xval = torch.where(better, cand, xval)
-        tsel = torch.where(better, idx, tsel)
+    xval, tsel = _minimizer(torch.where(fwd, h, rc))
     kmat = ks[None, :].expand(rows, P)
     yval = torch.zeros_like(xval)
     for i in range(4):

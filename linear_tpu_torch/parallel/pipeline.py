@@ -113,6 +113,24 @@ class PipeCounters:
     seed_first_s: Optional[float] = None
     seed_last_s: Optional[float] = None
 
+    def add_superchunk(self, m_out: int, base_tier: bool, idxs,
+                       anchors) -> None:
+        """Count one superchunk the device seeded at tier m_out: anchors
+        are None for the reads it left to the host (N bases at the base
+        tier, an overflow of the last tier)."""
+        n_got = sum(a is not None for a in anchors)
+        self.superchunks[m_out] = self.superchunks.get(m_out, 0) + 1
+        self.tier_reads[m_out] = self.tier_reads.get(m_out, 0) + len(idxs)
+        self.seeded += n_got
+        if base_tier:
+            self.host_n += len(idxs) - n_got
+        else:
+            self.host_overflow += len(idxs) - n_got
+        now = time.time() - self.t0
+        if self.seed_first_s is None:
+            self.seed_first_s = now
+        self.seed_last_s = now
+
 
 class _SeedCollector(threading.Thread):
     """Runs Mapper._device_seed_stream2 over one block, chunk by chunk,
@@ -150,27 +168,16 @@ class _SeedCollector(threading.Thread):
             a = b
 
     def run(self):
-        c = self.c
         try:
             for m_out, idxs, anchors in self.mapper._device_seed_stream2(
                     self._chunks()):
-                n_got = sum(a is not None for a in anchors)
                 with self.cond:
                     for i, a in zip(idxs, anchors):
                         self.seeds[i] = a
                         self.final[i] = True
                     self.cond.notify_all()
-                c.superchunks[m_out] = c.superchunks.get(m_out, 0) + 1
-                c.tier_reads[m_out] = c.tier_reads.get(m_out, 0) + len(idxs)
-                c.seeded += n_got
-                if m_out == self.mapper.SEED_M_OUT:
-                    c.host_n += len(idxs) - n_got
-                else:
-                    c.host_overflow += len(idxs) - n_got
-                now = time.time() - c.t0
-                if c.seed_first_s is None:
-                    c.seed_first_s = now
-                c.seed_last_s = now
+                self.c.add_superchunk(m_out, m_out == self.mapper.SEED_M_OUT,
+                                      idxs, anchors)
         except BaseException as e:  # re-raised by the feeder and the drain
             self.error = e
         finally:

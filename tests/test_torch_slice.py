@@ -1,10 +1,13 @@
 """The slice end to end: `python -m linear_tpu_torch filter` against
 `python -m linear_tpu filter`, as subprocesses, on a 60 kb genome with an
 N-gap and 30 reads (an N read, reads at or below the 200-base cut, an
-8 kb+ read). SAM and APF must be byte-identical (tolerance 0). Also: the
-flags the port does not run exit 1, --device cuda without a card exits
-non-zero, and importing the port loads neither jax nor linear_tpu."""
+8 kb+ read), in the pipeline (-b 1) and in the serial loop (-b 0, where
+the device also extends), and on the same genome without N (the device
+builds the index). SAM and APF must be byte-identical (tolerance 0). Also:
+the flags the port does not run exit 1, --device cuda without a card exits
+1, and importing the port loads neither jax nor linear_tpu."""
 import os
+import re
 import subprocess
 import sys
 
@@ -93,7 +96,7 @@ def test_port_cpu_reports_seeding(outputs):
 @pytest.mark.parametrize("extra", [
     ["-i", "2"], ["-i", "3"], ["-f", "0"], ["-f", "1"], ["-a", "1"],
     ["-ot", "4"], ["-ot", "10"], ["--save-index", "x.npz"],
-    ["--load-index", "x.npz"], ["-b", "0", "--device", "cpu"],
+    ["--load-index", "x.npz"], ["-b", "0", "--device", "cpu", "-i", "2"],
 ])
 def test_unported_flags_exit_1(corpus, extra):
     p = subprocess.run(
@@ -120,14 +123,125 @@ def test_serial_block_loop_matches(corpus, outputs):
 
 
 def test_cuda_without_a_card_exits_nonzero(corpus):
+    """Both block loops: the pipeline (-b 1) and the serial loop (-b 0),
+    which has no pipeline to close."""
     import torch
 
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: nothing to refuse")
-    p = _filter("linear_tpu_torch", corpus, "cuda", out="nocard")
-    assert p.returncode != 0
-    assert "no CUDA device" in p.stderr
-    assert not os.path.exists(os.path.join(corpus, "nocard.sam"))
+    for extra, out in (((), "nocard"), (("-b", "0"), "nocard_b0")):
+        p = _filter("linear_tpu_torch", corpus, "cuda", extra=extra, out=out)
+        assert p.returncode == 1, p.stderr[-2000:]
+        assert "E[dev]" in p.stderr and "no CUDA device" in p.stderr
+        assert "Traceback" not in p.stderr
+        assert not os.path.exists(os.path.join(corpus, f"{out}.sam"))
+
+
+@pytest.fixture(scope="module")
+def serial_outputs(corpus):
+    """-b 0 runs: the port on device cpu (seeding and extension in the
+    plain PyTorch versions) and host, and the JAX package's device path
+    (--device tpu on JAX-CPU) and host loop."""
+    runs = {"port_cpu": ("linear_tpu_torch", "cpu"),
+            "port_host": ("linear_tpu_torch", "host"),
+            "jax_tpu": ("linear_tpu", "tpu"),
+            "jax_host": ("linear_tpu", "host")}
+    res = {}
+    for name, (pkg, device) in runs.items():
+        p = _filter(pkg, corpus, device, extra=("-b", "0"), out=f"b0_{name}")
+        assert p.returncode == 0, p.stderr[-3000:]
+        res[name] = {"stderr": p.stderr}
+        for ext in ("sam", "apf"):
+            with open(os.path.join(corpus, f"b0_{name}.{ext}"), "rb") as fh:
+                res[name][ext] = fh.read()
+    return res
+
+
+@pytest.mark.parametrize("ext", ["sam", "apf"])
+@pytest.mark.parametrize("other", ["jax_tpu", "jax_host", "port_host"])
+def test_serial_device_output_is_identical(serial_outputs, other, ext):
+    assert serial_outputs["port_cpu"][ext], "empty output"
+    assert serial_outputs["port_cpu"][ext] == serial_outputs[other][ext]
+
+
+def _extension_counts(stderr):
+    line = [ln for ln in stderr.splitlines()
+            if ln.startswith("--Device extension")]
+    assert len(line) == 1, stderr[-2000:]
+    m = re.search(r"extended on the device (\d+) of (\d+) eligible, kernel "
+                  r"launches (\d+); host re-map: (\d+) with N, (\d+) over 256 "
+                  r"hits, (\d+) overflowing C, (\d+) re-apx", line[0])
+    assert m, line[0]
+    return [int(v) for v in m.groups()]
+
+
+def test_serial_extension_accounts_for_every_read(serial_outputs):
+    """Every eligible read (above 200 bases) is extended on the device or
+    counted under exactly one host re-map reason; the CPU runs no kernel."""
+    ext, elig, launches, n_n, n_hits, n_ovf, n_reapx = _extension_counts(
+        serial_outputs["port_cpu"]["stderr"])
+    assert elig == 29  # 30 reads, 1 at or below 200 bases
+    assert ext > 20 and n_n == 1 and launches == 0
+    assert ext + n_n + n_hits + n_ovf + n_reapx == elig
+    err = serial_outputs["port_cpu"]["stderr"]
+    assert "--Device index (cpu): uploaded (genome has N)" in err
+    seed = [ln for ln in err.splitlines() if "--Device seeding (cpu)" in ln][0]
+    seeded = int(seed.split("seeded reads ")[1].split()[0])
+    assert seeded == 28 and f"mapped with device seeds {seeded}," in seed
+    assert "--Device extension" not in serial_outputs["port_host"]["stderr"]
+
+
+@pytest.mark.parametrize("ext_h,bases", [(8, 1 << 23), (256, 1 << 15)])
+def test_serial_extension_counters_add_up(corpus, ext_h, bases):
+    """Mapper.map_block on device cpu with a low hits cap (reads over it
+    are mapped on the host) or batches of a few reads: the counters add
+    up to the eligible reads, and the SAM stays the host loop's."""
+    from linear_tpu_torch.map.mapper import Mapper, MapperConfig
+
+    sams = {}
+    for device in ("cpu", "host"):
+        m = Mapper([os.path.join(corpus, "g.fa")],
+                   MapperConfig(threads=4, bal_flag=0), device=device)
+        m.prepare()
+        m.EXT_H, m.EXT_BASES = ext_h, bases
+        sams[device] = "".join(
+            m.map_block(b)[2]
+            for b in seqio.read_blocks(os.path.join(corpus, "r.fa")))
+        ec = m.ext_counters
+        if device == "cpu":
+            assert ec.eligible == 29 and ec.host_n == 1
+            assert ec.eligible == (ec.extended + ec.host_n + ec.host_hits
+                                   + ec.host_overflow + ec.host_reapx)
+            assert (ec.host_hits > 0) == (ext_h == 8)
+            assert ec.extended > 0
+    assert sams["cpu"] and sams["cpu"] == sams["host"]
+
+
+@pytest.fixture(scope="module")
+def nfree(corpus):
+    """The corpus genome with its N-gap filled: the device builds the
+    DIndex itself."""
+    d = os.path.join(corpus, "nfree")
+    os.makedirs(d, exist_ok=True)
+    g = seqio.load_genomes([os.path.join(corpus, "g.fa")]).seqs[0].copy()
+    n = g == 4
+    g[n] = np.random.default_rng(43).integers(0, 4, int(n.sum()))
+    seqio.write_fasta(os.path.join(d, "g.fa"), ["chr1 test"], [g])
+    os.symlink(os.path.join(corpus, "r.fa"), os.path.join(d, "r.fa"))
+    return d
+
+
+@pytest.mark.parametrize("bal", ["1", "0"])
+def test_nfree_genome_builds_the_index_on_the_device(nfree, bal):
+    outs = {}
+    for device in ("cpu", "host"):
+        p = _filter("linear_tpu_torch", nfree, device, extra=("-b", bal),
+                    out=f"nf{bal}_{device}")
+        assert p.returncode == 0, p.stderr[-3000:]
+        with open(os.path.join(nfree, f"nf{bal}_{device}.sam"), "rb") as fh:
+            outs[device] = (fh.read(), p.stderr)
+    assert "--Device index (cpu): built on the card in" in outs["cpu"][1]
+    assert outs["cpu"][0] and outs["cpu"][0] == outs["host"][0]
 
 
 def test_seeding_error_fails_the_run(corpus):
