@@ -26,7 +26,15 @@ Phases, each of which raises (exit code != 0) on failure:
      plain version on the card, on the N-free genome (the corpus genome
      with every N replaced by a base from numpy.random.default_rng(43)):
      dir and hs exactly equal; the build time beside the upload time;
-  7. the main paths, `python -m linear_tpu_torch filter reads genome -t
+  7. the chain DP kernel against its plain version, both on the card, at
+     (B, N) = (256, 64), (256, 512) and (256, 8192): rows of corpus reads
+     seeded on the card after the Mapper's pre-pass (chain_prepass; cut to
+     their first 64 anchors for N = 64), and for N = 8192 rows of 60-120 kb
+     reads seeded by the host query (the card's seed tiers stop at 512
+     anchors) beside corpus rows; and one hand-built (256, 512) launch of
+     dense rows that overflow W: p2, score, length and overflow exactly
+     equal;
+  8. the main paths, `python -m linear_tpu_torch filter reads genome -t
      <ncpu> -ot 2` as subprocesses:
        -b 1 in turns with --device cuda, host, host, cuda: all SAM files
        byte-identical; each cuda run reports seed kernel launches > 0, as
@@ -38,7 +46,14 @@ Phases, each of which raises (exit code != 0) on failure:
        kernel launches > 0, extended reads > 0, and every eligible read
        either extended or counted under one host re-map reason;
        -b 1 on the N-free genome with --device cuda and host:
-       byte-identical SAM, and the index built on the card.
+       byte-identical SAM, and the index built on the card;
+       the Python engine (LINEAR_TPU_ENGINE=py), -b 1 on the first
+       PY_B1_READS reads and -b 0 on the first PY_B0_READS, with --device
+       cuda and host, and -a 1 -b 0 on the first ALN_READS: byte-identical
+       SAM, the Python-engine runs also equal to the native engine's SAM on
+       the same reads; each cuda run reports chain kernel launches > 0,
+       reads chained on the card > 0, and every seeded read either chained
+       or counted under one host-DP reason.
 It prints the kernels as one JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Without a CUDA device, or without the rest
 of the repository beside it, it exits 1 before printing any result.
@@ -67,6 +82,13 @@ SHAPES = [(1024, 8192, 128), (256, 8192, 512), (64, 131072, 512)]
 # corpus' pad (C = H + pad / 32), and a cut C that makes rows overflow
 EXT_B, EXT_PAD, EXT_H = 1024, 8192, 256
 EXT_CS = [EXT_H + EXT_PAD // 32, 100]
+# the chain DP check: rows a launch (Mapper.DEV_BATCH); its widths are 64
+# and 512, which the path runs on this corpus, and 8192, the widest
+CHAIN_B = 256
+# the Python-engine runs take the first reads of the corpus (on 8 cores the
+# engine maps some 470 reads/s at -b 1 and 65 at -b 0, and -a 1 about 5):
+# the genome stays whole
+PY_B1_READS, PY_B0_READS, ALN_READS = 2048, 512, 48
 
 
 def log(msg: str) -> None:
@@ -278,7 +300,7 @@ def check_extend(g_fa, r_fa, threads):
         hn[k] = len(h)
     args = [torch.from_numpy(a).cuda()
             for a in (packed, lens, hm.view(np.int64), hn)]
-    gf = ED.upload_genome_feats(m.f2, "cuda")
+    gf = ED.upload_genome_feats([f.arr for f in m.f2], "cuda")
     R = ED.feature_rows(EXT_PAD)
     results = []
     for C in EXT_CS:
@@ -378,10 +400,102 @@ def check_devbuild(g, threads):
             "build_s": t_build, "upload_s": t_up, "host_build_s": t_host}
 
 
-def run_filter(d, g_fa, r_fa, device, threads, extra=(), tag=""):
-    """One CLI run; returns (sam sha256, stats dict)."""
+def check_chain_dp(g_fa, r_fa, genome, threads, rng):
+    """Phase 7: the chain DP kernel vs its plain version at (CHAIN_B, N)
+    for N = 64, 512 and 8192, and on a launch of dense rows that
+    overflow."""
+    import torch
+
+    from linear_tpu_torch.map.mapper import Mapper, MapperConfig, chain_prepass
+    from linear_tpu_torch.ops import chain_dp as CD
+    from linear_tpu_torch.utils import seqio
+    from linear_tpu_torch.utils.cordscalar import anchor_x
+
+    m = Mapper([g_fa], MapperConfig(threads=threads), device="cuda")
+    m.prepare()
+    block = next(seqio.read_blocks(r_fa))
+    seeds = []
+    for _, _, anchors in m._device_seed_stream2([(0, block.seqs)]):
+        seeds += [a for a in anchors if a is not None]
+    rows = [r for r in map(chain_prepass, seeds) if len(r) >= 2]
+    long_rows = []
+    for r in check_reads(rng, genome, 48, 131072, 60_000, 120_000, []):
+        if not (r == 4).any():
+            a = chain_prepass(host_seeds(m.index, r))
+            if 512 < len(a) <= 8192:
+                long_rows.append(a)
+    launches = {64: [r[:64] for r in rows[:CHAIN_B]],
+                512: [r for r in rows if 64 < len(r) <= 512][:CHAIN_B],
+                8192: (long_rows + rows)[:CHAIN_B]}
+    dense = []
+    for b in range(CHAIN_B):
+        n = int(rng.integers(2, 513))
+        ys = np.sort(rng.integers(0, max(4, n * (3 if b % 2 else 40)), n))
+        anc = [(((123000 + int(rng.integers(-150, 150)) + (1 << 20)) << 20)
+                + int(y) + (int(rng.integers(0, 2)) << 61)) for y in ys]
+        dense.append(sorted(anc, key=anchor_x, reverse=True))
+    results = []
+    for (N, rs), kind in zip(list(launches.items()) + [(512, dense)],
+                             ("corpus", "corpus", "long + corpus", "dense")):
+        arr = np.zeros((len(rs), N), dtype=np.uint64)
+        cnt = np.zeros((len(rs),), dtype=np.int32)
+        for k, r in enumerate(rs):
+            arr[k, : len(r)] = r
+            cnt[k] = len(r)
+        a = torch.from_numpy(arr.view(np.int64)).cuda()
+        c = torch.from_numpy(cnt).cuda()
+        got = [t.cpu().numpy() for t in CD.chain_dp_windowed(a, c)]
+        want = [t.cpu().numpy() for t in CD.chain_dp_windowed_reference(a, c)]
+        err = _max_abs_err(got, want)
+        same = all(np.array_equal(x.astype(np.int64), y.astype(np.int64))
+                   for x, y in zip(got, want))
+        n_ovf = int(want[3].sum())
+        ms = time_ms(lambda: CD.chain_dp_windowed(a, c), 10)
+        plain_ms = time_ms(lambda: CD.chain_dp_windowed_reference(a, c), 1)
+        log(f"chain DP check (B, N) = {(len(rs), N)}, {kind} rows: anchors "
+            f"{int(cnt.sum())} (longest {int(cnt.max())}), chained anchors "
+            f"{int((want[0] >= 0).sum())}, overflow rows {n_ovf}, equal "
+            f"{same}, max_abs_err {err}; kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms")
+        if not same:
+            raise AssertionError(f"chain DP kernel disagrees with the plain "
+                                 f"version at N = {N} ({kind} rows)")
+        if len(rs) != CHAIN_B or (N == 8192 and int(cnt.max()) <= 512):
+            raise AssertionError(f"the {kind} launch at N = {N} is not full")
+        if kind == "dense" and not 0 < n_ovf < CHAIN_B:
+            raise AssertionError("the dense launch should overflow some rows")
+        results.append({"shape": [len(rs), N], "rows": kind, "ms": ms,
+                        "plain_ms": plain_ms, "max_abs_err": err,
+                        "overflow_rows": n_ovf})
+    torch.cuda.empty_cache()
+    return results
+
+
+def host_seeds(index, read):
+    """The host's seeds of a whole read (getDIndexMatchAll)."""
+    from linear_tpu_torch.index import dindex as DI
+
+    return DI.query_anchors(index, read, 0, len(read))
+
+
+def subset_reads(d, r_fa, n):
+    """The first n reads of the corpus, as a file of their own."""
+    from linear_tpu_torch.utils import seqio
+
+    fa = os.path.join(d, f"reads_first{n}.fa")
+    if not os.path.exists(fa):
+        block = next(seqio.read_blocks(r_fa))
+        seqio.write_fasta(fa + ".tmp", block.ids[:n], block.seqs[:n])
+        os.replace(fa + ".tmp", fa)
+    return fa
+
+
+def run_filter(d, g_fa, r_fa, device, threads, extra=(), tag="", engine=None):
+    """One CLI run with LINEAR_TPU_ENGINE=engine (default native);
+    returns (sam sha256, stats dict)."""
     prefix = os.path.join(d, f"out{tag}_{device}")
     env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    env["LINEAR_TPU_ENGINE"] = engine or "native"
     t0 = time.time()
     res = subprocess.run(
         [sys.executable, "-m", "linear_tpu_torch", "filter", r_fa, g_fa,
@@ -422,6 +536,13 @@ def run_filter(d, g_fa, r_fa, device, threads, extra=(), tag=""):
         stats.update(zip(("extended", "eligible", "ext_launches", "remap_n",
                           "remap_hits", "remap_overflow", "remap_reapx"),
                          map(int, m.groups())))
+    m = re.search(r"chained on the device (\d+) of (\d+) seeded reads, kernel "
+                  r"launches (\d+); host DP: (\d+) with fewer than 2 anchors, "
+                  r"(\d+) over \d+ anchors, (\d+) overflowing W", res.stderr)
+    if m:
+        stats.update(zip(("chained", "chain_seeded", "chain_launches",
+                          "chain_few", "chain_many", "chain_overflow"),
+                         map(int, m.groups())))
     with open(prefix + ".sam", "rb") as fh:
         digest = hashlib.sha256(fh.read()).hexdigest()
     return digest, stats
@@ -439,6 +560,53 @@ def check_seeding_run(st) -> None:
             st["tier_reads"]):
         raise AssertionError("device seeding does not account for every "
                              "eligible read")
+
+
+def check_chaining_run(st) -> None:
+    """The seeding and chaining counts of one Python-engine cuda run."""
+    check_seeding_run(st)
+    if not (st["chain_launches"] > 0 and st["chained"] > 0):
+        raise AssertionError("the Python engine did not chain on the card")
+    if st["chain_seeded"] != st["seeded"] or st["chain_seeded"] != sum(
+            st[k] for k in ("chained", "chain_few", "chain_many",
+                            "chain_overflow")):
+        raise AssertionError("device chaining does not account for every "
+                             "seeded read")
+
+
+def python_engine_runs(d, g_fa, r_fa, threads):
+    """The Python-engine paths (phase 8, last part): returns the stats of
+    each cuda run by name."""
+    out = {}
+    for name, n, extra, engine in (
+            ("py_b1", PY_B1_READS, (), "py"),
+            ("py_b0", PY_B0_READS, ("-b", "0"), "py"),
+            ("aln", ALN_READS, ("-a", "1", "-b", "0"), None)):
+        fa = subset_reads(d, r_fa, n)
+        runs = {dev: run_filter(d, g_fa, fa, dev, threads, extra, name, engine)
+                for dev in ("cuda", "host")}
+        for dev, (_, st) in runs.items():
+            log(f"filter {name} ({n} reads) --device {dev} -t {threads}: "
+                f"{json.dumps(st)}; {n / st['time_in_sum_s']:.2f} reads/s "
+                f"end to end")
+        if runs["cuda"][0] != runs["host"][0]:
+            raise AssertionError(f"{name}: SAM of --device cuda differs from "
+                                 "host")
+        check_chaining_run(runs["cuda"][1])
+        msg = ""
+        if engine == "py":
+            nat, st = run_filter(d, g_fa, fa, "host", threads, extra,
+                                 name + "_native")
+            if nat != runs["host"][0]:
+                raise AssertionError(f"{name}: the Python engine's SAM differs "
+                                     "from the native engine's")
+            msg = f", == the native engine's ({st['time_in_sum_s']} s)"
+        st = runs["cuda"][1]
+        log(f"SAM {name} --device cuda == host{msg} (sha256 {runs['cuda'][0]});"
+            f" chained on the card {st['chained']} of {st['chain_seeded']} "
+            f"seeded reads in {st['chain_launches']} launches")
+        out[name] = st
+    return out
 
 
 def main() -> int:
@@ -462,7 +630,7 @@ def main() -> int:
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
-    for name in ("lt_engine", "lt_seqio"):
+    for name in ("lt_engine", "lt_seqio", "lt_sort"):
         native.build(name)
         log(f"g++ build {name}: {native.BUILD_SECONDS[name]:.2f} s")
     _cuda.build()
@@ -492,6 +660,8 @@ def main() -> int:
     ext_checks = check_extend(g_fa, r_fa, threads)
     torch.cuda.empty_cache()
     db_check = check_devbuild(g_nf, threads)
+    chain_checks = check_chain_dp(g_fa, r_fa, genome, threads,
+                                  np.random.default_rng(SEED + 2))
 
     # the main paths, in fresh processes (the pipeline forks before CUDA).
     # -b 1 in turns: cuda, host, host, cuda
@@ -556,7 +726,10 @@ def main() -> int:
         f"built on the card in {st_nf['index_s']} s with "
         f"{st_nf['build_launches']} build kernel launches")
 
+    py = python_engine_runs(d, g_fa, r_fa, threads)
+
     ext_main = ext_checks[0]
+    chain_main = chain_checks[1]
     print(json.dumps({"kernels": [{
         "name": "seed_superchunk",
         "route": "cuda",
@@ -588,6 +761,16 @@ def main() -> int:
         "plain_ms": db_check["plain_ms"],
         "build_s": db_check["build_s"],
         "upload_s": db_check["upload_s"],
+    }, {
+        "name": "chain_dp_windowed",
+        "route": "cuda",
+        "source": "linear_tpu_torch/ops/csrc/chain_dp.cu",
+        "replaces": "linear_tpu/ops/chain_dp.py:137",
+        "launches": py["py_b1"]["chain_launches"],
+        "max_abs_err": max(c["max_abs_err"] for c in chain_checks),
+        "ms": chain_main["ms"],
+        "plain_ms": chain_main["plain_ms"],
+        "shapes": chain_checks,
     }]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -3,12 +3,15 @@
 The package mirrors linear_tpu's layout and module names, so each module's
 counterpart is easy to find:
 
-  - `linear_tpu_torch.ops`      device seeding: the hand-written CUDA kernel
-                                (ops/csrc) and its plain PyTorch version
+  - `linear_tpu_torch.ops`      the hand-written CUDA kernels (ops/csrc:
+                                seeding, extension, index build, chain DP),
+                                each beside its plain PyTorch version; the
+                                numpy feature scripts and k-mer hashing
   - `linear_tpu_torch.index`    the DIndex tables (built by the native engine)
-  - `linear_tpu_torch.map`      the mapper and the ctypes binding of the native
-                                per-read engine
-  - `linear_tpu_torch.out`      SAM header and APF emission
+                                and their numpy query
+  - `linear_tpu_torch.map`      the mapper, the ctypes binding of the native
+                                per-read engine, and the Python engine
+  - `linear_tpu_torch.out`      SAM records, SAM header and APF emission
   - `linear_tpu_torch.utils`    seq I/O, packed-u64 cord bit formats, the
                                 synthetic corpus generator
   - `linear_tpu_torch.parallel` the feeder / worker-pool / ordered-drain

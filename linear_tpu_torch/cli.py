@@ -9,8 +9,10 @@ native engine does all the work; cpu: the plain PyTorch versions; cuda: the
 hand-written CUDA kernels. On a device the reads are seeded there, the
 DIndex tables are built there when no genome has N (uploaded from the host
 build otherwise), and with -b 0 the dense-window extension runs there too.
-cuda never falls back: without a card the run exits 1. Options the port
-does not run yet exit 1 and name their ROADMAP.md item.
+With the Python engine (LINEAR_TPU_ENGINE=py, or -a 1, which the native
+engine does not implement) the device chains the seeded reads instead of
+extending them. cuda never falls back: without a card the run exits 1.
+Options the port does not run yet exit 1 and name their ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -52,8 +54,9 @@ def build_parser() -> argparse.ArgumentParser:
     f.add_argument("--load-index", default="")
     f.add_argument("--device", choices=["host", "cpu", "cuda"], default="host",
                    help="who runs the device kernels (seeding, index build, "
-                        "-b 0 extension): none (host), their plain PyTorch "
-                        "versions (cpu) or the CUDA kernels (cuda)")
+                        "-b 0 extension, chain DP of the Python engine): "
+                        "none (host), their plain PyTorch versions (cpu) or "
+                        "the CUDA kernels (cuda)")
     return p
 
 
@@ -128,6 +131,7 @@ def run_filter(args) -> int:
         # the workers have forked: torch may be imported and the device
         # initialised now
         t_dev = time.time()
+        from .ops import chain_dp as CDP
         from .ops import devbuild as DB
         from .ops import extend_dev as ED
         from .ops import seeding as SD
@@ -155,6 +159,7 @@ def run_filter(args) -> int:
                   f"in {mapper.dev_index_seconds:.3f} s", file=sys.stderr)
         SD.launches = 0
         ED.launches = 0
+        CDP.launches = 0
     runs = []  # PipeCounters of each read file (pipeline or serial loop)
 
     f_apf = args.output_type & 1
@@ -242,7 +247,14 @@ def run_filter(args) -> int:
                 print(f"--Device seeds landed from {c.seed_first_s:.3f} s to "
                       f"{c.seed_last_s:.3f} s into the read file's run",
                       file=sys.stderr)
-        if not args.bal_flag:
+        if not mapper.use_native():
+            cc = mapper.chain_counters
+            print(f"--Device chaining ({args.device}): chained on the device "
+                  f"{cc.chained} of {cc.seeded} seeded reads, kernel launches "
+                  f"{CDP.launches}; host DP: {cc.host_few} with fewer than 2 "
+                  f"anchors, {cc.host_many} over {mapper.CHAIN_MAX_N} anchors, "
+                  f"{cc.host_overflow} overflowing W", file=sys.stderr)
+        elif not args.bal_flag:
             ec = mapper.ext_counters
             print(f"--Device extension ({args.device}): extended on the "
                   f"device {ec.extended} of {ec.eligible} eligible, kernel "

@@ -1,21 +1,28 @@
 """Mapping orchestration: genomes + reads -> cords -> SAM/APF.
 
 Counterpart of linear_tpu.map.mapper for the slice the port runs: DIndex
-(-i 1), 2_48 features (-f 2), the native per-read engine, device seeding
-through ops.seeding, and in the serial -b 0 loop the dense-window
-extension (_filterHits + path_dst_2) through ops.extend_dev. The rest of
-the per-read work (chaining, the apx tail, gaps, SAM) is the native engine
-in every mode. On a genome without N the device builds its own DIndex
-tables (ops.devbuild); otherwise the host build is uploaded.
+(-i 1), 2_48 features (-f 2), device seeding through ops.seeding, and one of
+two per-read engines:
+  native  lt_engine does the per-read work (chaining, the apx tail, gaps,
+          SAM); in the serial -b 0 loop on a device the dense-window
+          extension (_filterHits + path_dst_2) runs on the device
+          (ops.extend_dev) between the engine's first pass and its finish;
+  Python  map.pmpfinder / chaining / gap and out.bamlink (or map.align for
+          -a 1), selected by LINEAR_TPU_ENGINE=py or by -a 1, which the
+          native engine does not implement; on a device the chain DP of
+          each seeded read runs there (ops.chain_dp) and the engine starts
+          from its tables.
+On a genome without N the device builds its own DIndex tables
+(ops.devbuild); otherwise the host build is uploaded.
 
 Devices (`device`):
-  host  the native engine does all of it;
+  host  the engine does all of it;
   cpu   the plain PyTorch versions of the kernels on CPU tensors;
   cuda  the hand-written CUDA kernels.
 Nothing here falls back from a device to the host: a failed build, upload
 or launch raises. Reads that the algorithm itself maps on the host (reads
-with N, too many hits, overflowing cords, the re-apx path) are counted by
-reason.
+with N, too many hits, overflowing cords, the re-apx path; for chaining,
+too few or too many anchors and a window overflow) are counted by reason.
 """
 from __future__ import annotations
 
@@ -26,10 +33,13 @@ from typing import List, Optional
 import numpy as np
 
 from ..index import dindex as DI
+from ..ops import features as F
 from ..out import bamlink as BL
 from ..out.apf import print_cords_apf
 from ..utils import seqio
+from ..utils.cordscalar import anchor_x
 from . import nengine as NE
+from . import pmpfinder as PMP
 
 THD_MIN_READ_LEN = 200  # src/mapper.cpp:430
 MAX_SEED_READ_LEN = 1 << 17  # longest read the device seeds (pad 131072)
@@ -87,14 +97,22 @@ def unported(cfg: MapperConfig, device: str) -> str:
     if cfg.feature_t != 2:
         return (f"-f {cfg.feature_t}: only the 2_48 features (-f 2) are "
                 "ported (ROADMAP.md, port item 'feature types -f 0/1')")
-    if cfg.aln_flag:
-        return ("-a 1 is not ported yet (ROADMAP.md, port item '-a "
-                "base-level alignment')")
     if cfg.output_type & 12:
         return (f"-ot {cfg.output_type}: BAM and pbsv-BAM output (bits 4 "
                 "and 8) are not ported yet (ROADMAP.md, port item 'BAM and "
                 "pbsv output')")
     return ""
+
+
+def chain_prepass(seeds) -> List[int]:
+    """The host pre-pass the chain DP starts from (getAnchorHitsChains,
+    src/pmpfinder.cpp:2506, :2448): filterAnchors on one read's seeds, then
+    the std::sort-exact permutation by anchor-x, descending (the order of
+    the anchors decides the DP)."""
+    anchors = [0]
+    anchors.extend(int(a) for a in seeds)
+    PMP.filter_anchors(anchors, 1, 2, 2)
+    return PMP.CXS.std_sort(anchors, [anchor_x(a) for a in anchors], desc=True)
 
 
 @dataclass
@@ -112,9 +130,24 @@ class ExtendCounters:
     host_reapx: int = 0     # apx_finish: the y-gaps cover >= 0.7 of the read
 
 
+@dataclass
+class ChainCounters:
+    """What the device chain DP did with the seeded reads of a run (the
+    Python engine on a device). Every read with device seeds is either
+    chained on the device or left to the engine's host DP for exactly one
+    of JAX's three reasons (linear_tpu/map/mapper.py:322-324, :358-359)."""
+
+    seeded: int = 0
+    chained: int = 0
+    host_few: int = 0       # fewer than 2 anchors after the filter
+    host_many: int = 0      # more than CHAIN_MAX_N anchors
+    host_overflow: int = 0  # a dx-depth lookback could reach past W
+
+
 class Mapper:
     """Holds genomes, features and index; maps read blocks through the
-    native engine, with seeds from the device when `device` is cpu/cuda."""
+    native or the Python engine, with seeds (and, for the Python engine,
+    chain DP tables) from the device when `device` is cpu/cuda."""
 
     # superchunk rows per fused kernel launch and d2h of the streaming seed
     # path, and per-read anchor slots of its output (the tail column holds
@@ -131,6 +164,11 @@ class Mapper:
     # hits are mapped on the host
     EXT_BASES = 1 << 23
     EXT_H = 256
+    # Python-engine chain DP: rows a launch (JAX's DEV_BATCH), the lookback
+    # window, and the most anchors a read may have (more: the host DP)
+    DEV_BATCH = 256
+    CHAIN_W = 64
+    CHAIN_MAX_N = 8192
 
     def __init__(self, genome_paths: List[str],
                  cfg: Optional[MapperConfig] = None, device: str = "host"):
@@ -146,7 +184,7 @@ class Mapper:
         self.genome_ids = [g.split(" ")[0] for g in gset.ids]
         self.genomes = gset.seqs
         self.genome_lens = [len(s) for s in self.genomes]
-        self.f2: List[np.ndarray] = []  # per-genome 2_48 feature scripts
+        self.f2: List[PMP.Feats] = []  # per-genome 2_48 feature scripts
         self.index: Optional[DI.DIndex] = None
         self._dev_index = None
         self._dev_gfeats = None
@@ -155,10 +193,19 @@ class Mapper:
         self.dev_index_source = ""
         self.dev_index_seconds = 0.0
         self.ext_counters = ExtendCounters()
+        self.chain_counters = ChainCounters()
         self._nengine = None  # lazy per-process native engine
+        # Python-engine state of the emulated compute threads (tid): the
+        # persistent GapParms and the PMPParms toggle leak
+        # (PMPParms.did_toggle)
+        self._gap_parms: dict = {}
+        self._pmp_toggled: dict = {}
 
     def create_features(self) -> None:
-        self.f2 = [NE.build_features_native(s, self.cfg.threads)
+        """The genomes' 2_48 feature scripts from the native builder (bit-
+        equal to ops.features.create_features_genome), wrapped for the
+        Python engine; the native engine reads their arrays."""
+        self.f2 = [PMP.Feats(NE.build_features_native(s, self.cfg.threads))
                    for s in self.genomes]
 
     def create_index(self) -> None:
@@ -276,7 +323,8 @@ class Mapper:
         from ..ops import extend_dev as ED
 
         if self._dev_gfeats is None:
-            self._dev_gfeats = ED.upload_genome_feats(self.f2, self.device)
+            self._dev_gfeats = ED.upload_genome_feats(
+                [f.arr for f in self.f2], self.device)
         ec = self.ext_counters
         out: List = [None] * len(reads.seqs)
         todo = []
@@ -322,12 +370,184 @@ class Mapper:
                     out[i] = cords[k, : ncords[k]].copy()
         return out
 
-    # ------------------------------------------------------ native engine
+    def _device_chain_block(self, seeded: List, raw: bool = False) -> List:
+        """The device's chain DP (ops.chain_dp) for the reads whose seeds
+        came from the device (entries of `seeded` not None), for the Python
+        engine. Replays the host pre-pass that the DP starts from
+        (chain_prepass) and runs the windowed getBestChains on the device, at
+        most DEV_BATCH reads a launch at the power-of-two width (64 or more)
+        of the launch's longest. Returns per read (sorted anchors,
+        ChainsRecord list), or with raw=True the picklable (anchors, p2,
+        score, length) arrays that pipeline workers rebuild records from;
+        None where the engine's host DP runs: reads without device seeds,
+        and the reads chain_counters counts by reason (fewer than 2 or more
+        than CHAIN_MAX_N anchors, a window overflow). All launches go out
+        before any result is read back."""
+        import torch
+
+        from ..ops import chain_dp as CDP
+
+        cc = self.chain_counters
+        out: List = [None] * len(seeded)
+        pre: List[List[int]] = []
+        idxs: List[int] = []
+        for i, seeds in enumerate(seeded):
+            if seeds is None:
+                continue
+            cc.seeded += 1
+            anchors = chain_prepass(seeds)
+            if len(anchors) < 2:
+                # chainAnchorsBase returns at once
+                cc.host_few += 1
+            elif len(anchors) > self.CHAIN_MAX_N:
+                cc.host_many += 1
+            else:
+                pre.append(anchors)
+                idxs.append(i)
+        pending = []
+        for c0 in range(0, len(pre), self.DEV_BATCH):
+            chunk = pre[c0: c0 + self.DEV_BATCH]
+            N = max(1 << int(np.ceil(np.log2(max(map(len, chunk))))), 64)
+            arr = np.zeros((len(chunk), N), dtype=np.uint64)
+            cnt = np.zeros((len(chunk),), dtype=np.int32)
+            for k, a in enumerate(chunk):
+                arr[k, : len(a)] = a
+                cnt[k] = len(a)
+            pending.append((c0, CDP.chain_dp_windowed(
+                torch.from_numpy(arr.view(np.int64)).to(self.device),
+                torch.from_numpy(cnt).to(self.device), W=self.CHAIN_W)))
+        for c0, res in pending:
+            p2, score, length, overflow = (t.cpu().numpy() for t in res)
+            for k, ovf in enumerate(overflow):
+                r = c0 + k
+                if ovf:
+                    cc.host_overflow += 1
+                    continue
+                cc.chained += 1
+                n = len(pre[r])
+                if raw:
+                    out[idxs[r]] = (pre[r], p2[k, :n].copy(),
+                                    score[k, :n].copy(), length[k, :n].copy())
+                else:
+                    out[idxs[r]] = (pre[r], CDP.chain_records_from_dp(
+                        p2[k], score[k], length[k], n))
+        return out
+
+    # ------------------------------------------------------ the engines
+
+    def use_native(self) -> bool:
+        """Whether the native engine maps the reads: not with
+        LINEAR_TPU_ENGINE=py, nor with -a 1, which it does not implement
+        (linear_tpu/map/mapper.py:507-513)."""
+        return NE.enabled() and not self.cfg.aln_flag
+
+    def gap_parms(self, tid: int = 0):
+        """The Python engine's persistent GapParms of emulated compute
+        thread `tid` (the reference's per-thread gap_parms_set,
+        src/mapper.cpp:233-237). The reference never resets it between
+        reads and mapGaps mutates it, so later reads see the leaked values;
+        see linear_tpu.map.mapper.Mapper.gap_parms for the -b 0 / -b 1
+        thread structure."""
+        if tid not in self._gap_parms:
+            from . import gap as GAP
+
+            # gap_len -> thd_gap_len_min (src/mapper.cpp:209-232): 1 -> 50
+            # (default), 2..9 -> 10, >= 10 -> gap_len
+            g = self.cfg.gap_len
+            thd = 50 if g == 1 else (10 if g < 10 else g)
+            self._gap_parms[tid] = GAP.GapParms(thd_gap_len_min=thd,
+                                                f_dup=self.cfg.f_dup)
+        return self._gap_parms[tid]
 
     def reset_gap_parms(self) -> None:
         """Start fresh emulated compute threads (per-task GapParms)."""
+        self._gap_parms = {}
+        self._pmp_toggled = {}
         if self._nengine is not None:
             self._nengine.reset()
+
+    def map_read_gen(self, read: np.ndarray, seed_anchors=None,
+                     chain_pre=None, tid: int = 0):
+        """The Python engine's apx phase of one read as a generator of
+        window-sweep requests (pmpfinder.run_serial / run_lockstep); returns
+        (cords_str, cords_end, rc, f1). The gap phase is not
+        part of it: it mutates the thread's GapParms, so it runs in read
+        order (gap_phase). The thread's PMPParms start in ctor state and
+        stay in toggle(0) state once a read on the thread took the re-apx
+        path (PMPParms.did_toggle)."""
+        if len(read) <= THD_MIN_READ_LEN:
+            return [], [], None, None
+        rc = seqio.revcomp(read)
+        f1 = [PMP.Feats(F.create_features_serial(read)),
+              PMP.Feats(F.create_features_serial(rc))]
+        pm = PMP.PMPParms(seed_anchors=seed_anchors, chain_pre=chain_pre,
+                          cah_stop_ratio=self.cfg.cah_stop_ratio)
+        if self._pmp_toggled.get(tid):
+            pm.toggle(0)
+        cords_str, cords_end, _, _ = yield from PMP.apx_map(
+            self.index, read, f1, self.f2, f_chain=self.cfg.apx_chain_flag,
+            pm=pm)
+        if pm.did_toggle:
+            self._pmp_toggled[tid] = True
+        return cords_str, cords_end, rc, f1
+
+    def gap_phase(self, read, rc, cords_str, cords_end, f1,
+                  tid: int = 0) -> None:
+        """mapGaps + reformCords for one read, in read order. apx_gaps is
+        an output parameter of mapGaps (recomputed there, src/gap.cpp:437),
+        so a fresh list goes in."""
+        if not self.cfg.gap_len or rc is None:
+            return
+        from . import gap as GAP
+
+        GAP.map_gaps(self.genomes, read, rc, cords_str, cords_end, [], f1,
+                     self.f2, self.gap_parms(tid))
+        PMP._dbg("GAPF", cords_str)
+        PMP._dbg("GAPE", cords_end)
+        GAP.reform_cords(cords_str, cords_end)
+        PMP._dbg("REFC", cords_str)
+
+    def read_output(self, read: np.ndarray, rid: str, cords_str: List[int],
+                    cords_end: List[int]) -> str:
+        """The Python engine's SAM text of one read (the print side of
+        p_calRecords, src/mapper.cpp:452-473): cords -> virtual-alignment
+        records, or with -a 1 the base-level banded alignment of the cords
+        windows (map.align, real =/X/I/D CIGARs)."""
+        if self.cfg.aln_flag:
+            from . import align as AL
+
+            records = AL.align_cords(self.genomes, read, seqio.revcomp(read),
+                                     cords_str, cords_end, band=100)
+        else:
+            records = BL.cords2bamlink(
+                cords_str, cords_end, len(read), thd_large_X=8000,
+                thd_DI=self.cfg.thd_DI, thd_X=self.cfg.thd_X)
+        if self.cfg.reform_ccs:
+            BL.reform_ccs_bams(records)
+        BL.fill_bam_records(records, self.genome_ids, rid)
+        if self.cfg.sequence_sam and records:
+            BL.synth_seq(records, self.genomes, read, seqio.revcomp(read))
+        return "".join(line + "\n" for line in BL.sam_lines(records))
+
+    def py_map_reads(self, reads: List[np.ndarray], rids: List[str],
+                     seeds: List, chain_pre: List, tids: List[int]):
+        """The Python engine over consecutive reads: the apx phase of all of
+        them in lockstep (batched window sweeps; in read order with -c 0,
+        whose alg-1 state leaks across reads), then the gap phase and the
+        SAM of each in read order. Returns (cords_str list, cords_end list,
+        SAM text) per read."""
+        gens = [self.map_read_gen(r, seed_anchors=s, chain_pre=c, tid=t)
+                for r, s, c, t in zip(reads, seeds, chain_pre, tids)]
+        if self.cfg.apx_chain_flag:
+            mapped = PMP.run_lockstep(gens)
+        else:
+            mapped = [PMP.run_serial(g) for g in gens]
+        out = []
+        for read, rid, tid, (cs, ce, rc, f1) in zip(reads, rids, tids,
+                                                     mapped):
+            self.gap_phase(read, rc, cs, ce, f1, tid=tid)
+            out.append((cs, ce, self.read_output(read, rid, cs, ce)))
+        return out
 
     def native_engine(self) -> NE.NativeEngine:
         """The per-process native engine, created lazily so forked pipeline
@@ -339,7 +559,8 @@ class Mapper:
             g = self.cfg.gap_len
             gap_min = 0 if not g else (50 if g == 1 else (10 if g < 10 else g))
             self._nengine = NE.NativeEngine(
-                self.genomes, self.f2, self.index, self.genome_ids,
+                self.genomes, [f.arr for f in self.f2], self.index,
+                self.genome_ids,
                 thd_DI=self.cfg.thd_DI, thd_X=self.cfg.thd_X,
                 gap_len_min=gap_min, f_dup=self.cfg.f_dup,
                 f_chain=self.cfg.apx_chain_flag,
@@ -371,11 +592,13 @@ class Mapper:
     def map_block(self, reads: seqio.SeqSet, counters=None):
         """Map a block of reads in this process (the serial -b 0 block
         loop); returns (all_cords_str, all_cords_end, sam_text). On a
-        device (JAX's map_block, linear_tpu/map/mapper.py:660-709): the
-        device seeds the block; in chain mode (-c 1) the native first pass
+        device (JAX's map_block, linear_tpu/map/mapper.py:649-734) the
+        device seeds the block. Then, with the Python engine, the device
+        chains the seeded reads and the engine starts from those tables.
+        With the native engine in chain mode (-c 1), the native first pass
         gives each eligible read its pre-filter hits, the device extends
         them, and the engine finishes each read from its cords
-        (apx_finish). Reads the device did not extend, or whose finish
+        (apx_finish); reads the device did not extend, or whose finish
         asks for the re-apx path, get the full native map with their device
         seeds. `counters` (a pipeline.PipeCounters) gets the seeding
         counts."""
@@ -385,9 +608,7 @@ class Mapper:
         else:
             tids = [0] * n
         seeds: List = [None] * n
-        dev_cords: List = [None] * n
         if self.device != "host":
-            ne = self.native_engine()
             for m_out, idxs, anchors in self._device_seed_stream2(
                     [(0, reads.seqs)]):
                 for i, a in zip(idxs, anchors):
@@ -395,14 +616,23 @@ class Mapper:
                 if counters is not None:
                     counters.add_superchunk(m_out, m_out == self.SEED_M_OUT,
                                             idxs, anchors)
-            if self.cfg.apx_chain_flag:
-                hits = [ne.apx_hits(r, s)
-                        if THD_MIN_READ_LEN < len(r) <= MAX_SEED_READ_LEN
-                        else None for r, s in zip(reads.seqs, seeds)]
-                dev_cords = self._device_extend_block(reads, hits)
         if counters is not None:
             counters.fetched += n
             counters.shipped_seeded += sum(s is not None for s in seeds)
+        if not self.use_native():
+            chain_pre = (self._device_chain_block(seeds)
+                         if self.device != "host" else [None] * n)
+            mapped = self.py_map_reads(reads.seqs, reads.ids, seeds,
+                                       chain_pre, tids)
+            return ([m[0] for m in mapped], [m[1] for m in mapped],
+                    "".join(m[2] for m in mapped))
+        dev_cords: List = [None] * n
+        if self.device != "host" and self.cfg.apx_chain_flag:
+            ne = self.native_engine()
+            hits = [ne.apx_hits(r, s)
+                    if THD_MIN_READ_LEN < len(r) <= MAX_SEED_READ_LEN
+                    else None for r, s in zip(reads.seqs, seeds)]
+            dev_cords = self._device_extend_block(reads, hits)
         all_str, all_end, sam_parts = [], [], []
         for rid, read, tid, s, dc in zip(reads.ids, reads.seqs, tids, seeds,
                                          dev_cords):

@@ -7,11 +7,13 @@ device seeding (ops.seeding). For the -b 0 device path it also splits a
 read around the extension: apx_hits runs the first pass up to the
 pre-filter hits, the device extends them (ops.extend_dev), and apx_finish
 takes the cords from there. The library is linear_tpu/native/lt_engine.cpp,
-compiled by linear_tpu_torch.native.
+compiled by linear_tpu_torch.native. LINEAR_TPU_ENGINE=py turns the engine
+off (enabled()): the Python engine (map.pmpfinder) maps the reads instead.
 """
 from __future__ import annotations
 
 import ctypes as C
+import os
 import threading
 from typing import List, Optional
 
@@ -109,6 +111,13 @@ def engine_lib():
                 C.c_int64, C.c_int64, C.c_void_p, C.c_void_p]
             _LIB = lib
         return _LIB
+
+
+def enabled() -> bool:
+    """Whether the native engine maps reads: LINEAR_TPU_ENGINE=py (the
+    variable linear_tpu.map.nengine reads) selects the Python engine. The
+    native genome feature and DIndex builders run either way."""
+    return os.environ.get("LINEAR_TPU_ENGINE", "native") != "py"
 
 
 def build_features_native(seq: np.ndarray, threads: int) -> np.ndarray:

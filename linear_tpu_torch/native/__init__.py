@@ -6,6 +6,7 @@ linear_tpu_torch/_build/, which git ignores:
   lt_engine   per-read mapping engine, genome feature + DIndex builders and
               the superchunk wire packer
   lt_seqio    fasta/fastq(.gz) record reader + Dna5 encoding
+  lt_sort     libstdc++ std::sort permutations (utils.cxxsort)
 
 A failed build raises: the port has no Python fallback for these.
 Concurrent builders (pytest-xdist workers, parallel CLI runs) serialise on an

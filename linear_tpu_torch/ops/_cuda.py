@@ -122,6 +122,10 @@ def lib() -> ctypes.CDLL:
             dll.lt_devbuild_scatter.restype = ctypes.c_int
             dll.lt_devbuild_scatter.argtypes = [
                 p, p, p, p, p, p, i64, p, i64, p, p]
+            dll.lt_chain_dp_windowed.restype = ctypes.c_int
+            dll.lt_chain_dp_windowed.argtypes = [
+                p, p, i64, i64, ctypes.c_int, i64, i64, ctypes.c_int,
+                p, p, p, p, p]
             dll.lt_cuda_error_string.restype = ctypes.c_char_p
             dll.lt_cuda_error_string.argtypes = [ctypes.c_int]
             _LIB = dll
@@ -281,3 +285,30 @@ def devbuild_scatter(xv, yv, st, jj, gid, flag, cur, n_out: int):
             gid.data_ptr(), flag.data_ptr(), xv.numel(), cur.data_ptr(),
             cur.numel() - 1, cords.data_ptr())
     return cords[:n_out]
+
+
+def chain_dp_windowed(anchors: torch.Tensor, n_anchors: torch.Tensor, W: int,
+                      depth: int, dx_depth: int, score_type: int):
+    """Launch csrc/chain_dp.cu: anchors (B, N) int64 sorted descending by
+    anchor-x, n_anchors (B,) int32 -> (p2, score, length (B, N) int32,
+    overflow (B,) bool)."""
+    from .chain_dp import MAX_W
+
+    dev = _cuda_device(anchors, "chain DP")
+    _check(anchors, "anchors", torch.int64, 2, dev)
+    _check(n_anchors, "n_anchors", torch.int32, 1, dev)
+    B, N = anchors.shape
+    if n_anchors.shape[0] != B:
+        raise ValueError("anchors and n_anchors differ in rows")
+    if not 1 <= W <= MAX_W or N < 1:
+        raise ValueError(f"W {W} outside 1..{MAX_W}, or no columns (N {N})")
+    if score_type not in (0, 1):
+        raise ValueError(f"score_type {score_type}: use 0 or 1")
+    p2, score, length = (torch.empty((B, N), dtype=torch.int32, device=dev)
+                         for _ in range(3))
+    overflow = torch.empty((B,), dtype=torch.bool, device=dev)
+    _launch("chain_dp_windowed", dev, lib().lt_chain_dp_windowed,
+            anchors.data_ptr(), n_anchors.data_ptr(), B, N, int(W), int(depth),
+            int(dx_depth), int(score_type), p2.data_ptr(), score.data_ptr(),
+            length.data_ptr(), overflow.data_ptr())
+    return p2, score, length, overflow

@@ -1,0 +1,212 @@
+"""Device chaining DP: batched getBestChains over sorted anchors.
+
+Counterpart of linear_tpu.ops.chain_dp. The spec is getBestChains
+(cluster_util.cpp:53) with getApxChainScore (:387, score_type 0) or
+getApxChainScore0 (:337, score_type 1), over (B, N) int64 anchors sorted
+descending by anchor-x in the first n_anchors[b] columns of each row:
+
+  score[i] = max over eligible j < i with edge(j, i) > 0 of
+             edge(j, i) + score[j] (the smallest j on ties), when > 0;
+  p2[i] = that j (else -1), length[i] = length[j] + 1 (else 1).
+
+j is eligible for i while j >= i - thd_chain_depth or
+anchor_x[j] - anchor_x[i] < thd_chain_dx_depth; the anchors are sorted, so
+that is the C++ loop's first break. The edge score is cast to int32 before
+the add; every division truncates like C.
+
+  chain_dp_windowed            the Mapper's DP: looks back at most W anchors
+                               and flags rows where a dx-depth lookback could
+                               reach past W (`overflow`: the caller runs the
+                               exact host DP for them). CUDA tensors launch
+                               the hand-written kernel csrc/chain_dp.cu (and
+                               count the launch in `launches`); CPU tensors
+                               run chain_dp_windowed_reference.
+  chain_dp_windowed_reference  the plain PyTorch version, a straight
+                               translation of linear_tpu's
+                               batch_chain_dp_windowed: banded (B, N, W) edge
+                               scores, then a scan with a (B, W) ring.
+  chain_dp_reference           the plain full DP (linear_tpu's
+                               batch_chain_dp), an oracle for the tests; no
+                               kernel yet (ROADMAP.md, Queue 1 item 7).
+
+ChainsRecords (with root_ptr and f_leaf) are rebuilt on the host from the
+tables by map.chaining.chain_records_from_dp.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..map.chaining import chain_records_from_dp  # noqa: F401  (re-export)
+
+MASK_Y = (1 << 20) - 1
+MASK_X30 = (1 << 30) - 1
+VALUE_MASK_DSTR = ((1 << 60) - 1) | (1 << 61)
+NEG32 = -(2 ** 31) + 1  # the full DP's sentinel (JAX's NEG)
+NEG40 = -(1 << 40)      # the windowed ring's sentinel
+MAX_W = 64              # the kernel's lookback limit (two per lane)
+
+# launches of the CUDA kernel by chain_dp_windowed in this process
+launches = 0
+
+
+def _anchor_x(a: torch.Tensor) -> torch.Tensor:
+    """getAnchorX (src/cords.cpp:463) on int64 anchors; the add may pass
+    bit 63 and wraps, and the mask clears the high bits before the shift."""
+    new = (a + ((a & MASK_Y) << 20) - (1 << 40)) & VALUE_MASK_DSTR
+    return (new >> 20) & MASK_X30
+
+
+def _tdiv(a: torch.Tensor, b) -> torch.Tensor:
+    """C truncating division."""
+    return torch.div(a, b, rounding_mode="trunc")
+
+
+def _apx_chain_score(a1: torch.Tensor, a2: torch.Tensor) -> torch.Tensor:
+    """getApxChainScore (cluster_util.cpp:387); int32 result."""
+    dy = (a1 & MASK_Y) - (a2 & MASK_Y)
+    dx = _anchor_x(a1) - _anchor_x(a2)
+    da = (dx - dy).abs()
+    denom = torch.clamp(torch.maximum(dy.abs(), dx.abs()), min=50)
+    derr = _tdiv(100 * da, denom)
+    # derr * derr is only selected when derr < 100: clamping first gives
+    # the same values without an int64 overflow in the discarded lanes
+    dc = derr.clamp(max=100)
+    score_derr = torch.where(dc < 5, 4 * dc,
+                             torch.where(dc < 10, 6 * dc - 10, dc * dc - 5 * dc))
+    dy15 = _tdiv(dy, 15)
+    score_dy = torch.where(
+        dy15 < 150, _tdiv(dy15, 5),
+        torch.where(dy15 < 10000, _tdiv(dy15 * dy15, 200) + 20,
+                    torch.full_like(dy15, 10000)))
+    score = torch.where(da < 10, 100 - score_dy, 100 - score_dy - score_derr)
+    score = torch.where(derr >= 100, torch.full_like(score, -1000), score)
+    score = torch.where(dy < 10, torch.full_like(score, -10000), score)
+    return score.to(torch.int32)
+
+
+def _apx_chain_score0(a1: torch.Tensor, a2: torch.Tensor) -> torch.Tensor:
+    """getApxChainScore0 (cluster_util.cpp:337), the toggle(1) variant."""
+    dy = (a1 & MASK_Y) - (a2 & MASK_Y)
+    dx = _anchor_x(a1) - _anchor_x(a2)
+    da = (dx - dy).abs()
+    denom = torch.clamp(torch.maximum(dy.abs(), dx.abs()), min=50)
+    derr = _tdiv(100 * da, denom)
+    score = torch.where(da < 30, 100 - dy, 100 - dy - da)
+    score = torch.where(derr >= 100, torch.full_like(score, -1000), score)
+    score = torch.where(dy < 5, torch.full_like(score, -10000), score)
+    return score.to(torch.int32)
+
+
+def _score_fn(score_type: int):
+    return _apx_chain_score if score_type == 0 else _apx_chain_score0
+
+
+def chain_dp_reference(anchors: torch.Tensor, n_anchors: torch.Tensor,
+                       thd_chain_depth: int = 20, thd_chain_dx_depth: int = 300,
+                       score_type: int = 0):
+    """The full DP (linear_tpu.ops.chain_dp.batch_chain_dp): anchors (B, N)
+    int64, n_anchors (B,) -> (p2, score, length), each (B, N) int32. Builds
+    the (B, N, N) score matrix: for tests at small N."""
+    B, N = anchors.shape
+    dev = anchors.device
+    n_anchors = n_anchors.to(device=dev, dtype=torch.int64)
+    ax = _anchor_x(anchors)
+    s = _score_fn(score_type)(anchors[:, :, None], anchors[:, None, :])
+    jj = torch.arange(N, device=dev)
+    elig = (jj[:, None] < jj[None, :]) & (
+        (jj[:, None] >= jj[None, :] - thd_chain_depth)
+        | ((ax[:, :, None] - ax[:, None, :]) < thd_chain_dx_depth))
+    cand = s.to(torch.int64)
+    score = torch.zeros((B, N), dtype=torch.int32, device=dev)
+    p2 = torch.full((B, N), -1, dtype=torch.int32, device=dev)
+    length = torch.ones((B, N), dtype=torch.int32, device=dev)
+    for i in range(N):
+        row = cand[:, :, i]
+        ok = elig[:, :, i] & (jj[None, :] < n_anchors[:, None])
+        tot = torch.where(ok & (row > 0), row + score.to(torch.int64),
+                          torch.full_like(row, NEG32))
+        max_j = torch.argmax(tot, dim=1)  # the first (smallest j) on ties
+        new_max = tot.gather(1, max_j[:, None])[:, 0]
+        found = new_max > 0
+        score[:, i] = torch.where(found, new_max, 0).to(torch.int32)
+        p2[:, i] = torch.where(found, max_j, -1).to(torch.int32)
+        length[:, i] = torch.where(
+            found, length.gather(1, max_j[:, None])[:, 0] + 1, 1)
+    return p2, score, length
+
+
+def chain_dp_windowed_reference(anchors: torch.Tensor, n_anchors: torch.Tensor,
+                                W: int = 64, thd_chain_depth: int = 20,
+                                thd_chain_dx_depth: int = 300,
+                                score_type: int = 0):
+    """Plain PyTorch version of the windowed DP (the module docstring):
+    anchors (B, N) int64, n_anchors (B,) -> (p2, score, length) (B, N)
+    int32 and overflow (B,) bool. Runs on any device."""
+    B, N = anchors.shape
+    dev = anchors.device
+    n_anchors = n_anchors.to(device=dev, dtype=torch.int64)
+    ax = _anchor_x(anchors)
+    jj = torch.arange(N, device=dev)
+    valid = jj[None, :] < n_anchors[:, None]
+    # banded edges: edge[b, i, w] = score(a[b, i - (W - w)], a[b, i])
+    d = W - torch.arange(W, device=dev)
+    j_idx = jj[:, None] - d[None, :]                      # (N, W)
+    j_clip = j_idx.clamp(0, N - 1)
+    a_j = anchors[:, j_clip]                              # (B, N, W)
+    ax_j = ax[:, j_clip]
+    edge = _score_fn(score_type)(a_j, anchors[:, :, None])
+    elig = (j_idx >= 0)[None] & valid[:, :, None] & (
+        (j_idx >= jj[:, None] - thd_chain_depth)[None]
+        | ((ax_j - ax[:, :, None]) < thd_chain_dx_depth))
+    ring_s = torch.zeros((B, W), dtype=torch.int64, device=dev)
+    ring_l = torch.ones((B, W), dtype=torch.int64, device=dev)
+    neg = torch.full((B, W), NEG40, dtype=torch.int64, device=dev)
+    scores, lens, p2_rel = [], [], []
+    for i in range(N):
+        e_i, ok_i = edge[:, i, :], elig[:, i, :]
+        tot = torch.where(ok_i & (e_i > 0), e_i.to(torch.int64) + ring_s, neg)
+        arg = torch.argmax(tot, dim=1)  # smallest w (= smallest j) on ties
+        new_max = tot.gather(1, arg[:, None])[:, 0]
+        found = new_max > 0
+        s_i = torch.where(found, new_max, 0)
+        l_i = torch.where(found, ring_l.gather(1, arg[:, None])[:, 0] + 1, 1)
+        ring_s = torch.cat([ring_s[:, 1:], s_i[:, None]], dim=1)
+        ring_l = torch.cat([ring_l[:, 1:], l_i[:, None]], dim=1)
+        scores.append(s_i)
+        lens.append(l_i)
+        p2_rel.append(torch.where(found, arg, -1))
+    scores = torch.stack(scores, dim=1).to(torch.int32)
+    lens = torch.stack(lens, dim=1).to(torch.int32)
+    p2_rel = torch.stack(p2_rel, dim=1)
+    # p2 absolute: j = i - (W - w)
+    p2 = torch.where(p2_rel >= 0, jj[None, :] - (W - p2_rel), -1).to(torch.int32)
+    # overflow: some j < i - W could satisfy the dx-depth condition
+    ax_far = torch.nn.functional.pad(ax, (W + 1, 0), value=1 << 40)[:, :N]
+    overflow = (((ax_far - ax) < thd_chain_dx_depth) & valid
+                & (jj[None, :] > W)).any(dim=1)
+    return p2, scores, lens, overflow
+
+
+def chain_dp_windowed(anchors: torch.Tensor, n_anchors: torch.Tensor,
+                      W: int = 64, thd_chain_depth: int = 20,
+                      thd_chain_dx_depth: int = 300, score_type: int = 0):
+    """One launch of the windowed DP: (p2, score, length) (B, N) int32 and
+    overflow (B,) bool. CUDA tensors launch the hand-written kernel (and
+    count the launch); CPU tensors run the plain PyTorch version. Anything
+    else raises."""
+    global launches
+    dev = anchors.device
+    if n_anchors.device != dev:
+        raise ValueError(f"anchors on {dev}, counts on {n_anchors.device}")
+    if dev.type == "cuda":
+        from . import _cuda
+
+        out = _cuda.chain_dp_windowed(anchors, n_anchors, W, thd_chain_depth,
+                                      thd_chain_dx_depth, score_type)
+        launches += 1
+        return out
+    if dev.type == "cpu":
+        return chain_dp_windowed_reference(anchors, n_anchors, W,
+                                           thd_chain_depth, thd_chain_dx_depth,
+                                           score_type)
+    raise ValueError(f"no chain DP kernel for device {dev}")

@@ -89,7 +89,7 @@ class GenomeFeats:
 
 
 def upload_genome_feats(f2_arrays, device) -> GenomeFeats:
-    """Per-genome (n, 3) int32 feature arrays (Mapper.f2) -> one
+    """Per-genome (n, 3) int32 feature arrays (of Mapper.f2) -> one
     concatenated table on `device` with 8 zero rows at the end, as
     linear_tpu.ops.extend_dev.upload_genome_feats lays it out."""
     offs = np.cumsum([0] + [len(a) for a in f2_arrays])

@@ -8,9 +8,15 @@ src/linear.cpp:67-95):
                             superchunk, and a task ships once its reads'
                             seeds have landed (PyTorch releases the GIL in
                             device calls).
-  Stage C (process pool)    per-read residual in the native engine: chaining,
-                            extension, gaps, SAM. Workers are forked after
-                            the index/features are built and share them
+                            With the Python engine the collector also runs
+                            the chain DP of the seeded reads on the device
+                            (Mapper._device_chain_block), and a task ships
+                            with its reads' DP tables.
+  Stage C (process pool)    per-read residual in the native engine (chaining,
+                            extension, gaps, SAM) or in the Python engine,
+                            which starts from the device's DP tables where it
+                            has them. Workers are forked after the
+                            index/features are built and share them
                             copy-on-write.
   Stage P (main thread)     in-order drain and file emission (mirrors
                             p_PrintResults ordering, src/parallel_io.cpp:522).
@@ -32,6 +38,7 @@ from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 
+from ..map.chaining import chain_records_from_dp
 from ..map.mapper import MAX_SEED_READ_LEN, THD_MIN_READ_LEN
 from ..utils import seqio
 
@@ -55,11 +62,13 @@ def _task_reads(reads, rids):
 
 
 def _map_chunk(task):
-    """Worker: native residual for a CHUNK of reads -> list of
-    (cords_str, cords_end, sam). With collect_cords False the chunk is one
-    ctypes crossing and the cords lists come back empty (SAM-only callers
-    never read them)."""
-    reads, rids, seeds, collect_cords, persist = task
+    """Worker: the residual for a CHUNK of reads -> list of (cords_str,
+    cords_end, sam). With collect_cords False the cords lists come back
+    empty (SAM-only callers never read them), and the native engine maps
+    the chunk in one ctypes crossing. The Python engine rebuilds the
+    ChainsRecords of the reads the device chained from their raw DP tables
+    (linear_tpu/parallel/pipeline.py:95-113)."""
+    reads, rids, seeds, chains, collect_cords, persist = task
     reads, rids = _task_reads(reads, rids)
     m = _WORKER_MAPPER
     # State model (linear_tpu.map.mapper.Mapper.gap_parms): the reference's
@@ -69,6 +78,12 @@ def _map_chunk(task):
     # reference's observed split-schedule outcome.
     if not persist:
         m.reset_gap_parms()
+    if not m.use_native():
+        chain_pre = [None if c is None else
+                     (c[0], chain_records_from_dp(c[1], c[2], c[3], len(c[0])))
+                     for c in chains]
+        out = m.py_map_reads(reads, rids, seeds, chain_pre, [0] * len(reads))
+        return out if collect_cords else [([], [], sam) for _, _, sam in out]
     if not collect_cords:
         return [([], [], m.native_engine().map_block(reads, rids,
                                                      seeds_list=seeds))]
@@ -137,12 +152,17 @@ class _SeedCollector(threading.Thread):
     marking reads FINAL (seeded, or left to the worker's host seeding) as
     device results land; the feeder ships a task only once all its reads
     are final. `reads(a, b)` returns the sequences of block reads [a, b).
-    An exception is kept in `error`; the feeder and the drain re-raise it."""
+    With the Python engine the device also chains each superchunk's seeded
+    reads before they turn final (`chains`: raw DP tables, or None for the
+    engine's host DP). An exception is kept in `error`; the feeder and the
+    drain re-raise it."""
 
     def __init__(self, mapper, n: int, reads, counters: PipeCounters):
         super().__init__(daemon=True)
         self.final = np.zeros(n, dtype=bool)
         self.seeds: List = [None] * n
+        self.chains: List = [None] * n
+        self.chain = not mapper.use_native()
         self.error: Optional[BaseException] = None
         self.mapper = mapper
         self.n = n
@@ -171,9 +191,12 @@ class _SeedCollector(threading.Thread):
         try:
             for m_out, idxs, anchors in self.mapper._device_seed_stream2(
                     self._chunks()):
+                chains = (self.mapper._device_chain_block(anchors, raw=True)
+                          if self.chain else [None] * len(idxs))
                 with self.cond:
-                    for i, a in zip(idxs, anchors):
+                    for i, a, ch in zip(idxs, anchors, chains):
                         self.seeds[i] = a
+                        self.chains[i] = ch
                         self.final[i] = True
                     self.cond.notify_all()
                 self.c.add_superchunk(m_out, m_out == self.mapper.SEED_M_OUT,
@@ -268,6 +291,7 @@ class PipelineMapper:
                     spans = [(i, min(i + csize, n)) for i in range(0, n, csize)]
                     persist = self.n_workers == 1
                     seeds: List = [None] * n
+                    chains: List = [None] * n
                     if seeding:
                         # at most one collector: the previous block's has
                         # drained its device work before this one starts
@@ -283,7 +307,7 @@ class PipelineMapper:
                                     int(offs[g + b]))[1]
                         coll = _SeedCollector(m, n, reads, c)
                         coll.start()
-                        seeds = coll.seeds
+                        seeds, chains = coll.seeds, coll.chains
                     for i, j in spans:
                         if seeding:
                             coll.wait_final(i, j)
@@ -296,7 +320,7 @@ class PipelineMapper:
                             rid_payload = block.ids[i:j]
                         task_seeds = seeds[i:j]
                         q.put((payload, rid_payload, task_seeds,
-                               collect_cords, persist))
+                               chains[i:j], collect_cords, persist))
                         c.shipped_seeded += sum(s is not None
                                                 for s in task_seeds)
                     q.put((END_BLOCK, block, n, coll))

@@ -1,0 +1,269 @@
+"""linear_tpu_torch.ops.chain_dp against linear_tpu: the port's plain
+windowed DP (what CPU tensors run) against JAX's `batch_chain_dp_windowed`
+on JAX-CPU, for score_type 0 and 1 at W = 64, on random rows, rows with
+overflow, edge rows (0-2 anchors, ties, 64-bit patterns whose anchor-x add
+passes bit 63) and rows from corpus reads after the Mapper's pre-pass; the
+plain full DP against JAX's `batch_chain_dp` and the windowed DP on rows
+without overflow; ChainsRecords through `chain_records_from_dp` against
+`get_best_chains` on the cases of tests/test_device.py; and the Mapper's
+`_device_chain_block` on device cpu. Every comparison is exact."""
+import os
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+sys.path.insert(0, os.path.dirname(__file__))
+
+import difftest as DT  # noqa: E402
+from linear_tpu.map import chaining as JCH  # noqa: E402
+from linear_tpu.ops import chain_dp as JCD  # noqa: E402
+from linear_tpu_torch.index import dindex as DI  # noqa: E402
+from linear_tpu_torch.map import chaining as CH  # noqa: E402
+from linear_tpu_torch.map import pmpfinder as PMP  # noqa: E402
+from linear_tpu_torch.ops import chain_dp as CD  # noqa: E402
+from linear_tpu_torch.utils import seqio  # noqa: E402
+from linear_tpu_torch.utils.cordscalar import anchor_x  # noqa: E402
+
+W = 64
+
+
+def _pack(rows, N=None):
+    """Anchor lists -> (B, N) int64 rows (uint64 bit patterns) and counts."""
+    N = N or max(64, 1 << int(np.ceil(np.log2(max(1, max(map(len, rows)))))))
+    arr = np.zeros((len(rows), N), dtype=np.uint64)
+    cnt = np.zeros((len(rows),), dtype=np.int32)
+    for b, r in enumerate(rows):
+        arr[b, : len(r)] = np.array(r, dtype=np.uint64)
+        cnt[b] = len(r)
+    return arr.view(np.int64), cnt
+
+
+def _random_row(rng, n, y_span=4000, x0=123000):
+    """tests/test_device.py's generator: anchors near one diagonal, sorted
+    descending by anchor-x; a small y_span packs them within dx-depth."""
+    ys = np.sort(rng.integers(0, y_span, n))
+    anc = [(((x0 + int(rng.integers(-150, 150)) + (1 << 20)) << 20) + int(y)
+            + (int(rng.integers(0, 2)) << 61)) for y in ys]
+    anc.sort(key=anchor_x, reverse=True)
+    return anc
+
+
+def _port_windowed(arr, cnt, score_type):
+    out = CD.chain_dp_windowed_reference(torch.from_numpy(arr),
+                                         torch.from_numpy(cnt), W=W,
+                                         score_type=score_type)
+    return [t.numpy() for t in out]
+
+
+def _jax_windowed(arr, cnt, score_type):
+    out = JCD.batch_chain_dp_windowed(jnp.asarray(arr), jnp.asarray(cnt), W=W,
+                                      score_type=score_type)
+    return [np.asarray(t) for t in out]
+
+
+def _assert_same(got, want):
+    for name, a, b in zip(("p2", "score", "length", "overflow"), got, want):
+        assert a.shape == b.shape, name
+        assert np.array_equal(a.astype(np.int64), b.astype(np.int64)), name
+
+
+def _prepass(anchors):
+    """Mapper._device_chain_block's pre-pass on one read's seeds."""
+    a = [0] + [int(x) for x in anchors]
+    PMP.filter_anchors(a, 1, 2, 2)
+    return PMP.CXS.std_sort(a, [anchor_x(x) for x in a], desc=True)
+
+
+@pytest.fixture(scope="module")
+def corpus_rows():
+    """Rows of reads on a repeat-rich genome after the pre-pass (2 or more
+    anchors, at most 1024), in batches of 16."""
+    rng = np.random.default_rng(77)
+    genome = DT.make_repeat_genome(rng, 120000)
+    idx = DI.build_dindex([genome], 4)
+    rows = []
+    for r in DT.simulate(rng, [genome], 40):
+        if len(r) <= 200:
+            continue
+        a = _prepass(DI.query_anchors(idx, r, 0, len(r)))
+        if 2 <= len(a) <= 1024:
+            rows.append(a)
+    return rows
+
+
+def _random_rows(seed):
+    rng = np.random.default_rng(seed)
+    rows = [_random_row(rng, int(rng.integers(8, 200))) for _ in range(10)]
+    # dense rows: anchors W + 1 places back are still within dx-depth
+    rows += [_random_row(rng, int(rng.integers(W + 2, 200)), y_span=250)
+             for _ in range(3)]
+    return rows
+
+
+@pytest.mark.parametrize("score_type", [0, 1])
+@pytest.mark.parametrize("case", ["random", "corpus"])
+def test_windowed_matches_jax(case, score_type, corpus_rows):
+    rows = _random_rows(3 + score_type) if case == "random" else corpus_rows
+    for b0 in range(0, len(rows), 16):
+        arr, cnt = _pack(rows[b0: b0 + 16])
+        got = _port_windowed(arr, cnt, score_type)
+        _assert_same(got, _jax_windowed(arr, cnt, score_type))
+        assert (got[0] >= 0).any(), "no chained anchor"
+    if case == "random":
+        assert got[3].any() and not got[3].all()
+
+
+@pytest.mark.parametrize("score_type", [0, 1])
+def test_edge_rows(score_type):
+    """0, 1 and 2 anchors, equal anchors (ties: the smallest j wins), a row
+    of random 64-bit patterns (bit 63 set: the anchor-x add wraps), and an
+    n = N row."""
+    rng = np.random.default_rng(9)
+    one = _random_row(rng, 1)
+
+    def at_x(xs):  # anchors with the given anchor-x, y rising by 20
+        return [((x - 20 * k + (1 << 20)) << 20) + 20 * k
+                for k, x in enumerate(xs)]
+
+    dense = list(range(123064, 122999, -1))  # W + 1 anchors within 64
+    rows = [[], one, _random_row(rng, 2), one * 40,
+            [int(v) for v in rng.integers(-(1 << 63), (1 << 63) - 1, 100,
+                                          dtype=np.int64).view(np.uint64)],
+            _random_row(rng, 128),
+            # the overflow test's edge: the anchor W + 1 places back is
+            # 1000 away (no overflow), W places back 64 (overflow if used)
+            at_x([124000] + dense), at_x([123065] + dense)]
+    arr, cnt = _pack(rows, N=128)
+    got = _port_windowed(arr, cnt, score_type)
+    _assert_same(got, _jax_windowed(arr, cnt, score_type))
+    assert got[3].tolist()[-2:] == [False, True]
+
+
+@pytest.mark.parametrize("score_type", [0, 1])
+def test_windowed_equals_full_dp(score_type):
+    """On rows without overflow the windowed DP is the full DP; the port's
+    plain full DP equals JAX's batch_chain_dp on every row."""
+    rows = _random_rows(5)
+    arr, cnt = _pack(rows, N=256)
+    full = [t.numpy() for t in CD.chain_dp_reference(
+        torch.from_numpy(arr), torch.from_numpy(cnt), score_type=score_type)]
+    jfull = JCD.batch_chain_dp(jnp.asarray(arr), jnp.asarray(cnt),
+                               score_type=score_type)
+    _assert_same(full, [np.asarray(t) for t in jfull])
+    win = _port_windowed(arr, cnt, score_type)
+    assert not win[3].all()
+    for b in np.flatnonzero(~win[3]):
+        for k in range(3):
+            assert np.array_equal(win[k][b], full[k][b]), (b, k)
+
+
+@pytest.mark.parametrize("seed,N", [(5, 64), (11, 96)],
+                         ids=["test_device_132", "test_device_164"])
+def test_chain_records_match_get_best_chains(seed, N):
+    """tests/test_device.py:132 and :164: the records rebuilt from the plain
+    full and windowed DP tables equal getBestChains (the port's and JAX's)."""
+    rng = np.random.default_rng(seed)
+    rows = [_random_row(rng, int(rng.integers(8, N))) for _ in range(4)]
+    arr, cnt = _pack(rows, N=N)
+    full = [t.numpy() for t in CD.chain_dp_reference(torch.from_numpy(arr),
+                                                     torch.from_numpy(cnt))]
+    win = _port_windowed(arr, cnt, 0)
+    for b, row in enumerate(rows):
+        n = len(row)
+        a = np.array(row, dtype=np.uint64)
+        want = CH.get_best_chains(a, 0, n, 20, 300, CH.get_apx_chain_score,
+                                  CH.ChainScoreParms(), anchor_x)
+        jwant = JCH.get_best_chains(a, 0, n, 20, 300, JCH.get_apx_chain_score,
+                                    JCH.ChainScoreParms(), anchor_x)
+        tables = [full] + ([] if win[3][b] else [win])
+        for t in tables:
+            got = CD.chain_records_from_dp(t[0][b], t[1][b], t[2][b], n)
+            for i in range(n):
+                rec = (got[i].p2anchor, got[i].score, got[i].length,
+                       got[i].root_ptr, got[i].f_leaf)
+                for w in (want[i], jwant[i]):
+                    assert rec == (w.p2anchor, w.score, w.length, w.root_ptr,
+                                   w.f_leaf), (b, i)
+
+
+def test_dispatch():
+    """CPU tensors run the plain version and launch nothing; other devices
+    and mixed devices raise."""
+    arr, cnt = _pack(_random_rows(7)[:4])
+    before = CD.launches
+    got = CD.chain_dp_windowed(torch.from_numpy(arr), torch.from_numpy(cnt))
+    _assert_same([t.numpy() for t in got], _port_windowed(arr, cnt, 0))
+    assert CD.launches == before
+    with pytest.raises(ValueError):
+        CD.chain_dp_windowed(torch.from_numpy(arr).to("meta"),
+                             torch.from_numpy(cnt).to("meta"))
+    with pytest.raises(ValueError):
+        CD.chain_dp_windowed(torch.from_numpy(arr).to("meta"),
+                             torch.from_numpy(cnt))
+
+
+@pytest.mark.parametrize("chain_w,max_n", [(64, 8192), (4, 20)])
+def test_device_chain_block_accounts_for_every_read(tmp_path, chain_w, max_n):
+    """Mapper._device_chain_block on device cpu: every seeded read is
+    chained or counted under one host-DP reason (a small W or anchor cap
+    makes reads overflow or exceed it), and each chained read's records
+    equal getBestChains on its pre-passed anchors."""
+    from linear_tpu_torch.map.mapper import Mapper, MapperConfig
+
+    rng = np.random.default_rng(21)
+    genome = rng.integers(0, 4, 30000).astype(np.uint8)
+    seqio.write_fasta(str(tmp_path / "g.fa"), ["chrH x"], [genome])
+    m = Mapper([str(tmp_path / "g.fa")], MapperConfig(threads=4),
+               device="cpu")
+    m.prepare()
+    m.CHAIN_W, m.CHAIN_MAX_N, m.DEV_BATCH = chain_w, max_n, 4
+    seeded = [None]
+    for _ in range(9):
+        ln = int(rng.integers(300, 3000))
+        pos = int(rng.integers(0, 30000 - ln))
+        r = DT.mutate(genome[pos: pos + ln], rng)
+        seeded.append(DI.query_anchors(m.index, r, 0, len(r)))
+    seeded.append(np.zeros(0, dtype=np.uint64))
+    out = m._device_chain_block(seeded)
+    raw = m._device_chain_block(seeded, raw=True)
+    cc = m.chain_counters
+    assert cc.seeded == 2 * 10
+    assert cc.chained + cc.host_few + cc.host_many + cc.host_overflow == cc.seeded
+    assert cc.chained > 0 and cc.host_few >= 2
+    if chain_w == 4:
+        assert cc.host_overflow > 0 and cc.host_many > 0
+    for s, o, rw in zip(seeded, out, raw):
+        if o is None:
+            assert rw is None
+            continue
+        anchors, recs = o
+        assert anchors == _prepass(s) and rw[0] == anchors
+        want = CH.get_best_chains(np.array(anchors, dtype=np.uint64), 0,
+                                  len(anchors), 20, 300,
+                                  CH.get_apx_chain_score,
+                                  CH.ChainScoreParms(), anchor_x)
+        assert [(r.p2anchor, r.score, r.length, r.root_ptr, r.f_leaf)
+                for r in recs] == [(r.p2anchor, r.score, r.length,
+                                    r.root_ptr, r.f_leaf) for r in want]
+        assert [r.p2anchor for r in recs] == list(rw[1])
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_matches_plain(corpus_rows):
+    """The hand-written kernel against the plain version on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode "
+                    "(chip_smoke.py runs this check at the main path's shapes)")
+    for score_type in (0, 1):
+        for rows in (corpus_rows, _random_rows(3)):
+            arr, cnt = _pack(rows)
+            a, c = torch.from_numpy(arr).cuda(), torch.from_numpy(cnt).cuda()
+            got = [t.cpu().numpy() for t in CD.chain_dp_windowed(
+                a, c, W=W, score_type=score_type)]
+            want = [t.cpu().numpy() for t in CD.chain_dp_windowed_reference(
+                a, c, W=W, score_type=score_type)]
+            _assert_same(got, want)

@@ -94,7 +94,7 @@ def test_port_cpu_reports_seeding(outputs):
 
 
 @pytest.mark.parametrize("extra", [
-    ["-i", "2"], ["-i", "3"], ["-f", "0"], ["-f", "1"], ["-a", "1"],
+    ["-i", "2"], ["-i", "3"], ["-f", "0"], ["-f", "1"], ["-a", "1", "-ot", "4"],
     ["-ot", "4"], ["-ot", "10"], ["--save-index", "x.npz"],
     ["--load-index", "x.npz"], ["-b", "0", "--device", "cpu", "-i", "2"],
 ])
