@@ -6,7 +6,8 @@
 Phases, each of which raises (exit code != 0) on failure:
   1. the card's name and power limit (nvidia-smi);
   2. builds, from this checkout's sources into linear_tpu_torch/_build/:
-     the native engine (g++) and the seeding kernel (nvcc, sm_90a);
+     the native engine (g++) and the CUDA kernels (one nvcc a source,
+     sm_90a);
   3. the corpus: a 4.6 Mb E. coli-scale genome with assembly N-gaps
      (make_genomic_genome, seed 42) and 10,240 CLR-like reads of about
      7 kb at about 10 % error, every third reverse-complemented (bench.py's
@@ -53,7 +54,32 @@ Phases, each of which raises (exit code != 0) on failure:
        SAM, the Python-engine runs also equal to the native engine's SAM on
        the same reads; each cuda run reports chain kernel launches > 0,
        reads chained on the card > 0, and every seeded read either chained
-       or counted under one host-DP reason.
+       or counted under one host-DP reason;
+  9. the padded seeding kernels and the multi-process mesh path:
+       (a) the scan seeding kernel against its plain version on the card at
+       (MESH_B, MESH_PAD, the index's cap), on corpus reads with every read
+       with N, and on 60-120 kb reads from the genome cut to the pad (no
+       corpus read is longer than the pad); the compaction
+       kernel on that grid at m_out 1024 and 8192, against its plain
+       version and a torch.sort(stable=True) compaction; the closed-form
+       kernel on N-free corpus reads, whole and in MESH_SHARDS xval shards
+       whose sum must be the whole grid; all exact;
+       (a') seed_anchors_batch (scan, then compaction, m_out 8192) on every
+       read with N and MESH_B N-free reads: each read gives exactly the
+       host seeds of query_anchors or is declared an overflow; the launches
+       of both kernels are counted on this run;
+       (b) mapping_step with either seeder at (MESH_B, MESH_PAD), n_max
+       256, against the same step built from the plain versions on the
+       card: all six outputs equal;
+       (c) two spawned ranks on the card with gloo (`python -m
+       linear_tpu_torch.parallel.e2e`): the grid mapping step at (dp, ix)
+       = (2, 1) and (1, 2) equal to one process's mapping_step(fast=True),
+       and map->SAM of the whole corpus at pad 8192 byte-identical to one
+       process's host-seeded run; the ranks' closed-form launches there are
+       the kernel's main-path count.
+Every kernel's entry carries its bound (bound(): bytes over the HBM rate or
+operations over the scalar rate, counted from this run's inputs) and, for
+the compaction, the stable sort's time as library_ms.
 It prints the kernels as one JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Without a CUDA device, or without the rest
 of the repository beside it, it exits 1 before printing any result.
@@ -89,6 +115,18 @@ CHAIN_B = 256
 # engine maps some 470 reads/s at -b 1 and 65 at -b 0, and -a 1 about 5):
 # the genome stays whole
 PY_B1_READS, PY_B0_READS, ALN_READS = 2048, 512, 48
+# phase 9: the padded seeding kernels at (rows, pad) with the index's cap,
+# the compaction's m_out tiers, and seed_anchors_batch's m_out
+MESH_B, MESH_PAD = 256, 8192
+COMPACT_M_OUTS = (1024, 8192)
+BATCH_M_OUT = 8192
+MESH_SHARDS = 4
+# the least time of a kernel's work: its bytes over the H100 SXM's HBM3 rate,
+# or its integer operations over the card's rate outside the tensor cores
+# (67 T/s, the H100 SXM's float32 non-tensor peak, taken for its integer rate
+# too), whichever is larger
+HBM_BYTES_S = 3.35e12
+SCALAR_OPS_S = 67e12
 
 
 def log(msg: str) -> None:
@@ -145,6 +183,22 @@ def edge_reads(genome):
             np.zeros(90, np.uint8), np.full(90, 2, np.uint8)]
     reads = [np.concatenate([r, tail]) for r in runs]
     return reads + [seqio.revcomp(reads[1])]
+
+
+def bound(nbytes: float, ops: float) -> dict:
+    """bound_ms and bound_by of a kernel's work (see HBM_BYTES_S)."""
+    t_b = nbytes / HBM_BYTES_S * 1e3
+    t_o = ops / SCALAR_OPS_S * 1e3
+    return {"bound_ms": max(t_b, t_o),
+            "bound_by": "bytes" if t_b >= t_o else "operations",
+            "bytes": int(nbytes), "ops": int(ops)}
+
+
+def n_calls(lens, thd_alpha: int = 15) -> int:
+    """In-range call positions of reads of these lengths (k = 35 + 15p
+    < len - 21): what the seeding kernels probe at most."""
+    lens = np.asarray(lens, dtype=np.int64)
+    return int(np.maximum(0, -(-(lens - 56) // thd_alpha)).sum())
 
 
 def time_ms(fn, iters: int) -> float:
@@ -210,8 +264,16 @@ def check_kernel(index, genome, rng):
                                  f"at {(rows, pad, m_out)}")
         if pad == 8192 and m_out == 128 and n_over == 0:
             raise AssertionError("no overflowing row at the main shape")
+        # the wire in, the rows out, two dir words a call position and an
+        # hs entry a probed slot below m_out; ~150 operations a position
+        # (window, nine candidates, YValue), ~20 a slot
+        calls = n_calls([min(len(r), pad) for r in reads])
+        slots = int(np.minimum(probed, m_out).sum())
         results.append({"shape": [rows, pad, m_out], "ms": ms,
-                        "plain_ms": plain_ms, "max_abs_err": max_abs_err})
+                        "plain_ms": plain_ms, "max_abs_err": max_abs_err,
+                        **bound(wire.nbytes + rows * (m_out + 1) * 8
+                                + 8 * calls + 8 * slots,
+                                150 * calls + 20 * slots)})
     return results
 
 
@@ -328,9 +390,15 @@ def check_extend(g_fa, r_fa, threads):
                                  "without overflow")
         if C == EXT_CS[-1] and not 0 < n_ovf < EXT_B:
             raise AssertionError("the cut C should make some rows overflow")
+        # reads and hits in, cords out (the genome feature rows read
+        # depend on the hits and are not counted); ~8 operations a base
+        # and strand for the feature scripts
         results.append({"shape": [EXT_B, EXT_PAD, EXT_H, C, R], "ms": ms,
                         "plain_ms": plain_ms, "max_abs_err": err,
-                        "overflow_rows": n_ovf})
+                        "overflow_rows": n_ovf,
+                        **bound(sum(a.nbytes for a in (packed, lens, hm, hn))
+                                + EXT_B * (C * 8 + 4 + 1),
+                                16 * EXT_B * EXT_PAD)})
     return results
 
 
@@ -396,8 +464,13 @@ def check_devbuild(g, threads):
     if not same:
         raise AssertionError("devbuild kernels disagree with the plain version")
     torch.cuda.empty_cache()
+    # the genome and the sample positions in, dir and hs out; ~150
+    # operations a sample (window, nine candidates, YValue)
+    n_dir = 4 ** 13 + 1
     return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
-            "build_s": t_build, "upload_s": t_up, "host_build_s": t_host}
+            "build_s": t_build, "upload_s": t_up, "host_build_s": t_host,
+            **bound(g.nbytes + j.nbytes + bs.nbytes + 4 * n_dir
+                    + 8 * len(host.hs), 150 * len(j))}
 
 
 def check_chain_dp(g_fa, r_fa, genome, threads, rng):
@@ -464,11 +537,301 @@ def check_chain_dp(g_fa, r_fa, genome, threads, rng):
             raise AssertionError(f"the {kind} launch at N = {N} is not full")
         if kind == "dense" and not 0 < n_ovf < CHAIN_B:
             raise AssertionError("the dense launch should overflow some rows")
+        # anchors in, three int32 tables out; each anchor scores up to 64
+        # earlier ones, ~40 integer operations an edge (getApxChainScore
+        # with its truncating divisions)
+        edges = sum(int(np.minimum(np.arange(c), 64).sum()) for c in cnt)
         results.append({"shape": [len(rs), N], "rows": kind, "ms": ms,
                         "plain_ms": plain_ms, "max_abs_err": err,
-                        "overflow_rows": n_ovf})
+                        "overflow_rows": n_ovf,
+                        **bound(arr.nbytes + cnt.nbytes + len(rs) * (12 * N + 1),
+                                40 * edges)})
     torch.cuda.empty_cache()
     return results
+
+
+def compact_by_sort(anc, keep, m_out: int):
+    """K3's function as one PyTorch stable sort (linear_tpu's own
+    formulation): the library yardstick of the compaction, used nowhere in
+    the port."""
+    import torch
+
+    B = anc.shape[0]
+    af = anc.reshape(B, -1)
+    kf = keep.reshape(B, -1)
+    n = af.shape[1]
+    keys = torch.where(kf, torch.arange(n, device=af.device), n)
+    order = torch.sort(keys, dim=1, stable=True).indices[:, :m_out]
+    count = kf.sum(1).to(torch.int32)
+    out = torch.gather(af, 1, order)
+    width = out.shape[1]
+    out = torch.where(torch.arange(width, device=af.device)[None, :]
+                      < count[:, None], out, 0)
+    if width < m_out:
+        out = torch.nn.functional.pad(out, (0, m_out - width))
+    return out, count
+
+
+def _grid_bound(seqs, lens, P, cap, kept, scan: bool) -> dict:
+    """Bytes and operations of a padded seeding launch: the reads in, two
+    dir words a call position and one hs entry a kept slot (a lower count
+    than the probed slots), the (rows, P, cap) grid out (9 bytes a slot);
+    ~150 operations a position, ~20 a kept slot, and for the scan ~12 a
+    rolled base."""
+    calls = n_calls(lens)
+    nbytes = (seqs.nbytes + lens.nbytes + 8 * calls + 8 * kept
+              + 9 * seqs.shape[0] * P * cap)
+    ops = 150 * calls + 20 * kept + (12 * int(np.asarray(lens).sum())
+                                     if scan else 0)
+    return bound(nbytes, ops)
+
+
+def _equal_all(got, want) -> bool:
+    import torch
+
+    return all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def check_padded_seeding(r_fa, idx, genome, rng):
+    """Phase 9 (a), (a') and (b): the scan (K1), closed-form (K2) and
+    compaction (K3) kernels against their plain versions on the card;
+    seed_anchors_batch against the host seeds; mapping_step with both
+    seeders against the same step built from the plain versions."""
+    import torch
+
+    from linear_tpu_torch.index import dindex as DI
+    from linear_tpu_torch.ops import chain_dp as CD
+    from linear_tpu_torch.ops import seeding as SD
+    from linear_tpu_torch.parallel import mesh as MS
+    from linear_tpu_torch.utils import seqio
+
+    index = SD.upload_index(idx.dir, idx.hs, "cuda")
+    cap = index.cap
+    reads = []
+    for block in seqio.read_blocks(r_fa):
+        reads += block.seqs
+    with_n = [r for r in reads if (r == 4).any()]
+    n_free = [r for r in reads if 200 < len(r) <= MESH_PAD
+              and not (r == 4).any()]
+    # long reads (60-120 kb, some with N) cut to the pad: every row ends at
+    # the pad, where a YValue base past the row reads 0
+    long_cut = check_reads(rng, genome, MESH_B, MESH_PAD, 60_000, 120_000, [])
+    P = SD.n_positions(MESH_PAD)
+    out = {"scan": [], "fast": [], "compact": []}
+
+    def on_card(rs):
+        seqs, lens = SD.pad_reads(rs, MESH_PAD)
+        return seqs, lens, torch.from_numpy(seqs).cuda(), \
+            torch.from_numpy(lens).cuda()
+
+    # K1: every read with N among corpus reads; then the long reads
+    scan_grid = None
+    for kind, rs in (("corpus, every read with N", (with_n + n_free)[:MESH_B]),
+                     ("60-120 kb reads cut to the pad", long_cut)):
+        seqs, lens, s, ln = on_card(rs)
+        args = (s, ln, index.dir_start, index.hs, cap)
+        got = SD.batch_seed_anchors(*args)
+        want = SD.batch_seed_anchors_reference(*args)
+        torch.cuda.synchronize()
+        same = _equal_all(got, want)
+        kept = int(want[1].sum())
+        ms = time_ms(lambda: SD.batch_seed_anchors(*args), 10)
+        plain_ms = time_ms(lambda: SD.batch_seed_anchors_reference(*args), 1)
+        n_n = sum(1 for r in rs if (r == 4).any())
+        log(f"scan seeding check (B, L, cap) = {(len(rs), MESH_PAD, cap)}, "
+            f"{kind}: {n_n} rows with N, kept anchors {kept}, equal {same}; "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        if not same:
+            raise AssertionError(f"the scan seeding kernel disagrees with the "
+                                 f"plain version ({kind})")
+        if len(rs) != MESH_B or (scan_grid is None and n_n != len(with_n)):
+            raise AssertionError(f"the scan launch ({kind}) is not as planned")
+        out["scan"].append({"shape": [len(rs), MESH_PAD, cap], "rows": kind,
+                            "ms": ms, "plain_ms": plain_ms, "max_abs_err": 0,
+                            **_grid_bound(seqs, lens, P, cap, kept, True)})
+        if scan_grid is None:
+            scan_grid = got
+        del want
+
+    # K3 on the first scan launch's grid
+    anc, keep = scan_grid
+    for m_out in COMPACT_M_OUTS:
+        got = SD.compact_anchors(anc, keep, m_out)
+        want = SD.compact_anchors_reference(anc, keep, m_out)
+        lib = compact_by_sort(anc, keep, m_out)
+        torch.cuda.synchronize()
+        same = _equal_all(got, want) and _equal_all(got, lib)
+        n_ovf = int((want[1] > m_out).sum())
+        ms = time_ms(lambda: SD.compact_anchors(anc, keep, m_out), 20)
+        plain_ms = time_ms(lambda: SD.compact_anchors_reference(
+            anc, keep, m_out), 3)
+        lib_ms = time_ms(lambda: compact_by_sort(anc, keep, m_out), 5)
+        B, n = anc.shape[0], anc[0].numel()
+        log(f"compaction check (B, n, m_out) = {(B, n, m_out)}: kept "
+            f"{int(want[1].sum())}, overflow rows {n_ovf}, equal to the plain "
+            f"version and to the stable-sort compaction {same}; kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.sort(stable=True) "
+            f"{lib_ms:.4f} ms")
+        if not same:
+            raise AssertionError(f"the compaction kernel disagrees at m_out "
+                                 f"{m_out}")
+        # what this grid needs: every keep flag, the kept anchors (no
+        # other slot is read), the rows and counts out; ~3 operations a flag
+        kept = int(want[1].sum())
+        out["compact"].append({"shape": [B, n, m_out], "ms": ms,
+                               "plain_ms": plain_ms, "library_ms": lib_ms,
+                               "max_abs_err": 0, "overflow_rows": n_ovf,
+                               **bound(B * n + 8 * kept + B * (8 * m_out + 4),
+                                       3 * B * n)})
+    del anc, keep, scan_grid
+
+    # K2: N-free corpus reads, unsharded and in MESH_SHARDS xval shards
+    seqs, lens, s, ln = on_card(n_free[:MESH_B])
+    args = (s, ln, index.dir_start, index.hs, cap)
+    full = SD.batch_seed_anchors_fast(*args)
+    same = _equal_all(full, SD.batch_seed_anchors_fast_reference(*args))
+    kept = int(full[1].sum())
+    ms = time_ms(lambda: SD.batch_seed_anchors_fast(*args), 10)
+    plain_ms = time_ms(lambda: SD.batch_seed_anchors_fast_reference(*args), 2)
+    log(f"closed-form seeding check (B, L, cap) = {(MESH_B, MESH_PAD, cap)}, "
+        f"N-free corpus reads: kept anchors {kept}, equal {same}; kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
+    if not same:
+        raise AssertionError("the closed-form kernel disagrees with the plain "
+                             "version")
+    out["fast"].append({"shape": [MESH_B, MESH_PAD, cap], "rows": "N-free",
+                        "ms": ms, "plain_ms": plain_ms, "max_abs_err": 0,
+                        **_grid_bound(seqs, lens, P, cap, kept, False)})
+    dir_sh, hs_sh, xb, sh_cap = MS.shard_index_by_xval(idx, MESH_SHARDS)
+    tot_a = torch.zeros_like(full[0])
+    tot_k = torch.zeros(full[1].shape, dtype=torch.int32, device="cuda")
+    for sh in range(MESH_SHARDS):
+        d = torch.from_numpy(dir_sh[sh].astype(np.int32)).cuda()
+        h = torch.from_numpy(hs_sh[sh].view(np.int64)).cuda()
+        kw = dict(x_base=int(xb[sh, 0]), x_hi=int(xb[sh, 1]))
+        got = SD.batch_seed_anchors_fast(s, ln, d, h, sh_cap, **kw)
+        if not _equal_all(got, SD.batch_seed_anchors_fast_reference(
+                s, ln, d, h, sh_cap, **kw)):
+            raise AssertionError(f"the closed-form kernel disagrees on shard "
+                                 f"{sh}")
+        tot_a += got[0]
+        tot_k += got[1].to(torch.int32)
+        del got, d, h
+    psum = torch.equal(tot_a, full[0]) and torch.equal(tot_k > 0, full[1]) \
+        and int(tot_k.max()) <= 1
+    log(f"closed-form seeding in {MESH_SHARDS} xval shards: each equal to its "
+        f"plain version, their sum equal to the unsharded grid {psum}")
+    if not psum:
+        raise AssertionError("the shards' sum differs from the unsharded grid")
+    del full, tot_a, tot_k
+
+    # (b) mapping_step, both seeders, against the plain versions on the card
+    for fast in (False, True):
+        got = MS.mapping_step(s, ln, index.dir_start, index.hs, cap, 256,
+                              fast=fast)
+        seed = (SD.batch_seed_anchors_fast_reference if fast
+                else SD.batch_seed_anchors_reference)
+        srt, n = MS.sort_anchors(*seed(s, ln, index.dir_start, index.hs, cap),
+                                 256)
+        want = (srt, n, *CD.chain_dp_windowed_reference(srt, n))
+        torch.cuda.synchronize()
+        same = _equal_all(got, want)
+        log(f"mapping_step (B, L, n_max) = {(MESH_B, MESH_PAD, 256)}, "
+            f"fast={fast}: all six outputs equal to the plain versions' "
+            f"{same}; anchors chained {int(want[1].sum())}, overflow rows "
+            f"{int(want[5].sum())}")
+        if not same:
+            raise AssertionError(f"mapping_step(fast={fast}) differs from its "
+                                 f"plain version")
+    del s, ln
+
+    # (a') seed_anchors_batch (K1 then K3): the main path of the compaction
+    batch = with_n + n_free[:MESH_B]
+    pad = 1 << int(np.ceil(np.log2(max(map(len, batch)))))
+    SD.scan_launches = SD.compact_launches = 0
+    got = SD.seed_anchors_batch(batch, index, pad, m_out=BATCH_M_OUT)
+    out["scan_launches"] = SD.scan_launches
+    out["compact_launches"] = SD.compact_launches
+    exact = over = 0
+    for r, a in zip(batch, got):
+        if a is None:
+            over += 1
+        elif a == [int(v) for v in DI.query_anchors(idx, r, 0, len(r),
+                                                    thd_alpha=15)]:
+            exact += 1
+        else:
+            raise AssertionError("seed_anchors_batch differs from the host "
+                                 "seeds of a read")
+    log(f"seed_anchors_batch ({len(with_n)} reads with N + {MESH_B} N-free, "
+        f"pad {pad}, m_out {BATCH_M_OUT}): {exact} reads equal to their host "
+        f"seeds, {over} declared overflows; scan launches "
+        f"{out['scan_launches']}, compaction launches "
+        f"{out['compact_launches']}")
+    if not out["scan_launches"] or not out["compact_launches"] or not exact:
+        raise AssertionError("seed_anchors_batch did not run its kernels")
+    del index
+    torch.cuda.empty_cache()
+    out["n_free"] = n_free[:MESH_B]
+    return out
+
+
+def _e2e(argv, timeout=900):
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    t0 = time.time()
+    res = subprocess.run([sys.executable, "-m", "linear_tpu_torch.parallel.e2e",
+                          *argv, "--device", "cuda", "--backend", "gloo",
+                          "--timeout", str(timeout)], capture_output=True,
+                         text=True, env=env, cwd=ROOT)
+    wall = time.time() - t0
+    for line in res.stdout.splitlines():
+        if "socket" not in line:
+            log(f"  {line}")
+    if res.returncode != 0:
+        raise RuntimeError(f"e2e {' '.join(argv)} exited {res.returncode}:\n"
+                           f"{res.stdout[-3000:]}{res.stderr[-3000:]}")
+    return res.stdout, wall
+
+
+def check_ranks(d, g_fa, r_fa, idx, n_free, threads):
+    """Phase 9 (c): two ranks on the one card (gloo), spawned: the grid
+    mapping step at (2, 1) and (1, 2) against one process's
+    mapping_step(fast=True), and map->SAM of the whole corpus against one
+    process's host-seeded run. Returns the closed-form launches of the
+    ranks' map run (the mesh path) and what it printed."""
+    from linear_tpu_torch.ops import seeding as SD
+
+    seqs, lens = SD.pad_reads(n_free, MESH_PAD)
+    inputs = os.path.join(d, "mesh_world.npz")
+    np.savez(inputs, seqs=seqs, lens=lens, dir=idx.dir, hs=idx.hs, n_max=256)
+    stdout, wall = _e2e(["steps", "--inputs", inputs, "--ranks", "2",
+                            "--layouts", "2x1,1x2", "--out",
+                            os.path.join(d, "mesh_steps.npz")])
+    if "STEPS OK" not in stdout:
+        raise AssertionError("the grid steps did not pass")
+    log(f"grid steps over 2 ranks: {wall:.2f} s")
+    out = os.path.join(d, "e2e_merged.sam")
+    stdout, wall = _e2e(["--reads", r_fa, "--genome", g_fa, "--ranks", "2",
+                            "--pad", str(MESH_PAD), "--threads", str(threads),
+                            "--out", out])
+    ranks = re.findall(r"block of (\d+) reads, seeded on the device (\d+), "
+                       r"host seeds (\d+) with N, (\d+) over pad \d+, (\d+) "
+                       r"overflowing m_out \d+; closed-form seeding launches "
+                       r"(\d+), compaction launches (\d+)", stdout)
+    if "E2E OK" not in stdout or len(ranks) != 2:
+        raise AssertionError("the 2-rank map->SAM run did not pass")
+    ranks = [list(map(int, r)) for r in ranks]
+    launches = sum(r[5] for r in ranks)
+    log(f"2-rank map->SAM of {N_READS} reads: byte-identical to one process; "
+        f"per rank: closed-form seeding launches {[r[5] for r in ranks]}, "
+        f"host seeds {[r[2] + r[3] + r[4] for r in ranks]} (N, over the pad, "
+        f"overflow); {wall:.2f} s")
+    if sum(r[0] for r in ranks) != N_READS or not all(r[5] for r in ranks):
+        raise AssertionError("the ranks did not seed the corpus on the card")
+    with open(out, "rb") as fh:
+        digest = hashlib.sha256(fh.read()).hexdigest()
+    return {"fast_launches": launches, "ranks": ranks, "wall_s": wall,
+            "sha256": digest}
 
 
 def host_seeds(index, read):
@@ -728,50 +1091,46 @@ def main() -> int:
 
     py = python_engine_runs(d, g_fa, r_fa, threads)
 
-    ext_main = ext_checks[0]
-    chain_main = chain_checks[1]
-    print(json.dumps({"kernels": [{
-        "name": "seed_superchunk",
-        "route": "cuda",
-        "source": "linear_tpu_torch/ops/csrc/seed_superchunk.cu",
-        "replaces": "linear_tpu/ops/seeding.py:443",
-        "launches": st_cuda["launches"],
-        "max_abs_err": max(c["max_abs_err"] for c in checks),
-        "ms": checks[0]["ms"],
-        "plain_ms": checks[0]["plain_ms"],
-        "shapes": checks,
-    }, {
-        "name": "filter_extend",
-        "route": "cuda",
-        "source": "linear_tpu_torch/ops/csrc/filter_extend.cu",
-        "replaces": "linear_tpu/ops/extend_dev.py:537",
-        "launches": st_b0["ext_launches"],
-        "max_abs_err": max(c["max_abs_err"] for c in ext_checks),
-        "ms": ext_main["ms"],
-        "plain_ms": ext_main["plain_ms"],
-        "shapes": ext_checks,
-    }, {
-        "name": "devbuild",
-        "route": "cuda",
-        "source": "linear_tpu_torch/ops/csrc/devbuild.cu",
-        "replaces": "linear_tpu/ops/devbuild.py:44",
-        "launches": st_nf["build_launches"],
-        "max_abs_err": db_check["max_abs_err"],
-        "ms": db_check["ms"],
-        "plain_ms": db_check["plain_ms"],
-        "build_s": db_check["build_s"],
-        "upload_s": db_check["upload_s"],
-    }, {
-        "name": "chain_dp_windowed",
-        "route": "cuda",
-        "source": "linear_tpu_torch/ops/csrc/chain_dp.cu",
-        "replaces": "linear_tpu/ops/chain_dp.py:137",
-        "launches": py["py_b1"]["chain_launches"],
-        "max_abs_err": max(c["max_abs_err"] for c in chain_checks),
-        "ms": chain_main["ms"],
-        "plain_ms": chain_main["plain_ms"],
-        "shapes": chain_checks,
-    }]}))
+    # phase 9: the padded seeding kernels and the mesh path
+    t9 = time.time()
+    seeding = check_padded_seeding(r_fa, idx, genome,
+                                   np.random.default_rng(SEED + 3))
+    mesh = check_ranks(d, g_fa, r_fa, idx, seeding.pop("n_free"), threads)
+    log(f"phase 9: {time.time() - t9:.2f} s")
+
+    def entry(name, source, replaces, launches, checks, main, **extra):
+        return {"name": name, "route": "cuda",
+                "source": f"linear_tpu_torch/ops/csrc/{source}",
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": max(c["max_abs_err"] for c in checks),
+                "ms": main["ms"], "plain_ms": main["plain_ms"],
+                "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+                "library_ms": main.get("library_ms"), **extra}
+
+    print(json.dumps({"kernels": [
+        entry("seed_superchunk", "seed_superchunk.cu",
+              "linear_tpu/ops/seeding.py:443", st_cuda["launches"], checks,
+              checks[0], shapes=checks),
+        entry("filter_extend", "filter_extend.cu",
+              "linear_tpu/ops/extend_dev.py:537", st_b0["ext_launches"],
+              ext_checks, ext_checks[0], shapes=ext_checks),
+        entry("devbuild", "devbuild.cu", "linear_tpu/ops/devbuild.py:44",
+              st_nf["build_launches"], [db_check], db_check,
+              build_s=db_check["build_s"], upload_s=db_check["upload_s"]),
+        entry("chain_dp_windowed", "chain_dp.cu",
+              "linear_tpu/ops/chain_dp.py:137", py["py_b1"]["chain_launches"],
+              chain_checks, chain_checks[1], shapes=chain_checks),
+        entry("seed_anchors_scan", "seed_anchors.cu",
+              "linear_tpu/ops/seeding.py:210", seeding["scan_launches"],
+              seeding["scan"], seeding["scan"][0], shapes=seeding["scan"]),
+        entry("seed_anchors_fast", "seed_anchors.cu",
+              "linear_tpu/ops/seeding.py:772", mesh["fast_launches"],
+              seeding["fast"], seeding["fast"][0], shapes=seeding["fast"]),
+        entry("compact_anchors", "seed_anchors.cu",
+              "linear_tpu/ops/seeding.py:420", seeding["compact_launches"],
+              seeding["compact"], seeding["compact"][-1],
+              shapes=seeding["compact"]),
+    ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

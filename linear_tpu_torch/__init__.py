@@ -4,7 +4,9 @@ The package mirrors linear_tpu's layout and module names, so each module's
 counterpart is easy to find:
 
   - `linear_tpu_torch.ops`      the hand-written CUDA kernels (ops/csrc:
-                                seeding, extension, index build, chain DP),
+                                seeding, extension, index build, chain DP,
+                                the mesh path's padded seeding and
+                                compaction),
                                 each beside its plain PyTorch version; the
                                 numpy feature scripts and k-mer hashing
   - `linear_tpu_torch.index`    the DIndex tables (built by the native engine)
@@ -15,7 +17,8 @@ counterpart is easy to find:
   - `linear_tpu_torch.utils`    seq I/O, packed-u64 cord bit formats, the
                                 synthetic corpus generator
   - `linear_tpu_torch.parallel` the feeder / worker-pool / ordered-drain
-                                pipeline
+                                pipeline, and the multi-process mesh path
+                                over torch.distributed (dist, mesh, e2e)
   - `linear_tpu_torch.native`   g++ build of linear_tpu/native's C++ sources
 
 It imports torch, numpy and ctypes, never jax or linear_tpu. The C++ runtime

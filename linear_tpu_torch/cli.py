@@ -4,14 +4,16 @@
 Usage: python -m linear_tpu_torch filter [OPTIONS] read.fa/fastq(.gz) genome.fa
 Multi-file: python -m linear_tpu_torch filter r1.fa r2.fa x g1.fa g2.fa
 
---device host|cpu|cuda: who runs the device kernels. host: none, the
-native engine does all the work; cpu: the plain PyTorch versions; cuda: the
-hand-written CUDA kernels. On a device the reads are seeded there, the
+--device host|cpu|cuda (default cuda): who runs the device kernels. host:
+none, the native engine does all the work; cpu: the plain PyTorch versions;
+cuda: the hand-written CUDA kernels. On a device the reads are seeded there, the
 DIndex tables are built there when no genome has N (uploaded from the host
 build otherwise), and with -b 0 the dense-window extension runs there too.
 With the Python engine (LINEAR_TPU_ENGINE=py, or -a 1, which the native
 engine does not implement) the device chains the seeded reads instead of
-extending them. cuda never falls back: without a card the run exits 1.
+extending them. cuda never falls back: without a card the run exits 1. A
+device run first joins the torch.distributed process group that the
+environment describes (parallel.dist; a no-op without WORLD_SIZE > 1).
 Options the port does not run yet exit 1 and name their ROADMAP.md item.
 """
 from __future__ import annotations
@@ -52,7 +54,7 @@ def build_parser() -> argparse.ArgumentParser:
     f.add_argument("-r", "--reform_ccs_cigar_flag", type=int, default=0)
     f.add_argument("--save-index", default="")
     f.add_argument("--load-index", default="")
-    f.add_argument("--device", choices=["host", "cpu", "cuda"], default="host",
+    f.add_argument("--device", choices=["host", "cpu", "cuda"], default="cuda",
                    help="who runs the device kernels (seeding, index build, "
                         "-b 0 extension, chain DP of the Python engine): "
                         "none (host), their plain PyTorch versions (cpu) or "
@@ -106,6 +108,11 @@ def run_filter(args) -> int:
     if why:
         print(f"E[port]: {why}", file=sys.stderr)
         return 1
+    if args.device in ("cpu", "cuda"):
+        # before anything touches CUDA or forks (linear_tpu/cli.py:99-104)
+        from .parallel.dist import init_distributed
+
+        init_distributed("nccl" if args.device == "cuda" else "gloo")
     t0 = time.time()
     mapper = Mapper(genome_paths, cfg, device=args.device)
     if len(mapper.genomes) >= 1024:

@@ -15,7 +15,7 @@ two per-read engines:
 On a genome without N the device builds its own DIndex tables
 (ops.devbuild); otherwise the host build is uploaded.
 
-Devices (`device`):
+Devices (`device`, default cuda):
   host  the engine does all of it;
   cpu   the plain PyTorch versions of the kernels on CPU tensors;
   cuda  the hand-written CUDA kernels.
@@ -171,7 +171,7 @@ class Mapper:
     CHAIN_MAX_N = 8192
 
     def __init__(self, genome_paths: List[str],
-                 cfg: Optional[MapperConfig] = None, device: str = "host"):
+                 cfg: Optional[MapperConfig] = None, device: str = "cuda"):
         self.cfg = cfg or MapperConfig()
         if device not in DEVICES:
             raise ValueError(f"device {device!r}: use one of {DEVICES}")

@@ -126,6 +126,13 @@ def lib() -> ctypes.CDLL:
             dll.lt_chain_dp_windowed.argtypes = [
                 p, p, i64, i64, ctypes.c_int, i64, i64, ctypes.c_int,
                 p, p, p, p, p]
+            dll.lt_seed_anchors.restype = ctypes.c_int
+            dll.lt_seed_anchors.argtypes = [
+                p, i64, i64, p, ctypes.c_int, ctypes.c_int, ctypes.c_int, i64,
+                p, i64, p, i64, ctypes.c_int, i64, i64, p, p, p, p, p, p]
+            dll.lt_compact_anchors.restype = ctypes.c_int
+            dll.lt_compact_anchors.argtypes = [
+                p, p, i64, i64, ctypes.c_int, p, p, p]
             dll.lt_cuda_error_string.restype = ctypes.c_char_p
             dll.lt_cuda_error_string.argtypes = [ctypes.c_int]
             _LIB = dll
@@ -312,3 +319,61 @@ def chain_dp_windowed(anchors: torch.Tensor, n_anchors: torch.Tensor, W: int,
             int(dx_depth), int(score_type), p2.data_ptr(), score.data_ptr(),
             length.data_ptr(), overflow.data_ptr())
     return p2, score, length, overflow
+
+
+def seed_anchors(seqs: torch.Tensor, lens: torch.Tensor,
+                 dir_start: torch.Tensor, hs: torch.Tensor, cap: int,
+                 thd_alpha: int, scan: bool, x_base: int = 0,
+                 x_hi: int = (1 << 63) - 1):
+    """Launch K1 (scan=True) or K2 of csrc/seed_anchors.cu: seqs (B, L)
+    uint8, lens (B,) int64, dir_start int32, hs int64 -> (anchors (B, P,
+    cap) int64, keep (B, P, cap) bool). K2 probes the xval shard
+    [x_base, x_hi) that dir_start and hs hold."""
+    from .seeding import SPAN, n_positions
+
+    dev = _cuda_device(seqs, "seeding")
+    _check(seqs, "seqs", torch.uint8, 2, dev)
+    _check(lens, "lens", torch.int64, 1, dev)
+    _check(dir_start, "dir_start", torch.int32, 1, dev)
+    _check(hs, "hs", torch.int64, 1, dev)
+    B, L = seqs.shape
+    if lens.shape[0] != B:
+        raise ValueError("seqs and lens differ in rows")
+    if B > 65535:
+        raise ValueError(f"{B} rows: at most 65535 a launch")
+    if dir_start.numel() < 2 or hs.numel() < 1:
+        raise ValueError("empty index tables")
+    if not 1 <= cap <= 1 << 20 or thd_alpha < 1:
+        raise ValueError(f"cap {cap} or thd_alpha {thd_alpha} out of range")
+    P = n_positions(L, thd_alpha)
+    anc = torch.empty((B, P, cap), dtype=torch.int64, device=dev)
+    keep = torch.empty((B, P, cap), dtype=torch.bool, device=dev)
+    st = [torch.empty((B, P) if scan else (0,), dtype=torch.int64, device=dev)
+          for _ in range(3)]
+    _launch("seed_anchors", dev, lib().lt_seed_anchors, seqs.data_ptr(), B,
+            L, lens.data_ptr(), int(scan), SPAN + thd_alpha - 1, thd_alpha, P,
+            dir_start.data_ptr(), dir_start.numel(), hs.data_ptr(),
+            hs.numel(), int(cap), int(x_base), int(x_hi),
+            *(t.data_ptr() for t in st), anc.data_ptr(), keep.data_ptr())
+    return anc, keep
+
+
+def compact_anchors(anc: torch.Tensor, keep: torch.Tensor, m_out: int):
+    """Launch K3 of csrc/seed_anchors.cu: anc (B, ...) int64 and keep of
+    the same shape -> (out (B, m_out) int64, count (B,) int32)."""
+    dev = _cuda_device(anc, "compaction")
+    if anc.dim() < 1 or keep.shape != anc.shape:
+        raise ValueError(f"anchors {tuple(anc.shape)} and keep "
+                         f"{tuple(keep.shape)} differ")
+    af = anc.reshape(anc.shape[0], -1)
+    kf = keep.reshape(keep.shape[0], -1)
+    _check(af, "anc", torch.int64, 2, dev)
+    _check(kf, "keep", torch.bool, 2, dev)
+    if not 0 < m_out < 1 << 31:
+        raise ValueError(f"m_out {m_out} out of range")
+    B, n = af.shape
+    out = torch.empty((B, m_out), dtype=torch.int64, device=dev)
+    count = torch.empty((B,), dtype=torch.int32, device=dev)
+    _launch("compact_anchors", dev, lib().lt_compact_anchors, af.data_ptr(),
+            kf.data_ptr(), B, n, int(m_out), out.data_ptr(), count.data_ptr())
+    return out, count

@@ -30,6 +30,23 @@ Only those are defined; probed > m_out means the row overflowed.
 `seed_superchunk` launches the hand-written CUDA kernel
 (csrc/seed_superchunk.cu) for CUDA tensors and runs
 `seed_superchunk_reference`, the plain PyTorch version, for CPU tensors.
+
+The padded seeding kernels of the multi-process path (the second half of
+this module) keep every probed bucket slot: (B, P, cap) anchors and a keep
+mask, P = len(range(35, L, 15)), in emission order (position-major, bucket-
+entry order); a read's host seeds are anc[b][keep[b]]. Slots with keep
+False hold 0 (JAX's kernels leave val2Anchor's arithmetic there), so a sum
+over xval shards is the unsharded result on every slot.
+  batch_seed_anchors       the exact rolling-hash scan (N bases flow through
+                           it), csrc/seed_anchors.cu K1;
+  batch_seed_anchors_fast  closed-form hash states, exact for N-free reads,
+                           optionally probing one xval shard [x_base, x_hi)
+                           of the index, csrc/seed_anchors.cu K2;
+  compact_anchors          the kept anchors of each row, in order, into
+                           (B, m_out) with the kept count (count > m_out:
+                           overflow), csrc/seed_anchors.cu K3.
+Each launches its kernel for CUDA tensors and runs its `_reference` plain
+version for CPU tensors.
 """
 from __future__ import annotations
 
@@ -53,6 +70,11 @@ MAX_M_OUT = 4096                      # the kernel keeps m_out slots in shared m
 
 # launches of the CUDA kernel by seed_superchunk in this process
 launches = 0
+# launches of the kernels of csrc/seed_anchors.cu by batch_seed_anchors,
+# batch_seed_anchors_fast and compact_anchors in this process
+scan_launches = 0
+fast_launches = 0
+compact_launches = 0
 
 
 @dataclass(frozen=True)
@@ -311,3 +333,333 @@ def collect_wire(handle: WireHandle, n_valid: int, n_mask: np.ndarray,
         else:
             res.append(anc[i, : count[i]].copy())
     return res, overflow
+
+
+# ------------------------------------ padded seeding of the multi-process path
+
+# rows of one seed_anchors_dispatch launch are cut so that the (rows, P, cap)
+# grid holds at most this many slots (9 bytes each: anchor and keep flag)
+GRID_SLOTS = 1 << 26
+_I64_MAX = (1 << 63) - 1
+
+
+def n_positions(L: int, thd_alpha: int = THD_ALPHA) -> int:
+    """P: the call positions k = 35, 35 + thd_alpha, ... below L."""
+    first = SPAN + thd_alpha - 1
+    return len(range(first, L, thd_alpha))
+
+
+def _hash_scan_batch(seqs: torch.Tensor):
+    """Exact LShape state streams of a (B, L) batch of codes 0..4
+    (linear_tpu.ops.seeding._hash_scan_batch): (h, crh, x), each (B, L - 21),
+    the state after the hashNexth call at k = 21 + column. hashInit runs at
+    k0, the first N-free 21-window (0 if none), but the roll starts at
+    k = 21 whatever k0 is; an N enters h as the value 4 and x as v - left,
+    never skipped. uint64 values are int64 bit patterns."""
+    s = seqs.to(torch.int64)
+    B, L = s.shape
+    dev = s.device
+    n_win = min(SPAN, L)
+    csum = torch.nn.functional.pad(torch.cumsum((s == 4).to(torch.int64), 1),
+                                   (1, 0))
+    ok = (csum[:, n_win:] - csum[:, :-n_win]) == 0
+    k0 = torch.where(ok.any(1), ok.to(torch.int8).argmax(1), 0)
+    init = torch.gather(s, 1, (k0[:, None] + torch.arange(
+        SPAN - 1, device=dev)).clamp(max=L - 1))
+    h = torch.zeros(B, dtype=torch.int64, device=dev)
+    crh = torch.zeros_like(h)
+    for t in range(SPAN - 1):
+        h = (h << 2) + init[:, t]
+        crh = crh + ((3 - init[:, t]) << (2 * (t + 1)))
+    x = 2 * init.sum(1) - 3 * (SPAN - 1) - 3
+    left = torch.zeros_like(h)
+    mask = (1 << (2 * SPAN - 2)) - 1
+    hs, crhs, xs = [], [], []
+    for k in range(SPAN, L):
+        v2 = s[:, min(k + SPAN - 1, L - 1)]
+        h = ((h & mask) << 2) + v2
+        crh = ((crh >> 2) & mask) + ((3 - v2) << (2 * SPAN - 2))
+        x = x + ((v2 - left) << 1)
+        left = s[:, k]
+        hs.append(h)
+        crhs.append(crh)
+        xs.append(x)
+    if not hs:
+        empty = torch.zeros((B, 0), dtype=torch.int64, device=dev)
+        return empty, empty, empty
+    return torch.stack(hs, 1), torch.stack(crhs, 1), torch.stack(xs, 1)
+
+
+def _minimizer_xy_batch(seqs: torch.Tensor, kmat: torch.Tensor,
+                        h: torch.Tensor, crh: torch.Tensor, x: torch.Tensor):
+    """hashNextX (src/shape_extend.cpp:341) at the call positions kmat of a
+    (B, L) batch, from their hash states (linear_tpu.ops.seeding.
+    _minimizer_xy_batch): (xval, yval, strand), each (B, P) int64. A YValue
+    base past the row reads 0 (one before it reads the row's last base, as
+    JAX clamps), and an N base adds 0."""
+    s = seqs.to(torch.int64)
+    L = s.shape[1]
+    fwd = x > 0
+    xval, tsel = _minimizer(torch.where(fwd, h, crh))
+    fwd_base = kmat + tsel + WEIGHT
+    rev_base = kmat + SPAN - tsel - WEIGHT - 1
+    yval = torch.zeros_like(xval)
+    for i in range(4):
+        pf, pr = fwd_base + i, rev_base - i
+        vf = torch.where(pf < L, torch.gather(s, 1, pf.clamp(0, L - 1)), 0)
+        vr = 3 - torch.where(pr >= 0, torch.gather(s, 1, pr.clamp(0, L - 1)), 0)
+        val = torch.where(fwd, vf, vr)
+        yval = (yval << 2) + torch.where((val >= 0) & (val <= 3), val, 0)
+    return xval, yval, (~fwd).to(torch.int64)
+
+
+def _probe_and_anchor(kmat, lens, xval, yval, strand, dir_start, hs, cap: int,
+                      in_range, x_base=None, x_hi=None):
+    """The index probe and val2Anchor of the padded kernels
+    (getDIndexMatchAll src/pmpfinder.cpp:1882-1911, val2Anchor
+    src/index_util.cpp:1509; linear_tpu.ops.seeding._probe_and_anchor):
+    (anchors (B, P, cap) int64, keep (B, P, cap) bool), anchors 0 where keep
+    is False. A position is probed when in range and its xval differs from
+    the previous position's (0 before the first), in range or not; with
+    (x_base, x_hi) the tables hold only that xval shard, so positions
+    outside it are not probed and the bucket index is rebased."""
+    prev = torch.nn.functional.pad(xval[:, :-1], (1, 0))
+    process = (xval != prev) & in_range
+    xl = xval
+    if x_base is not None:
+        process = process & (xval >= x_base) & (xval < x_hi)
+        xl = xval - x_base
+    xc = xl.clamp(0, dir_start.shape[0] - 2)
+    lo = dir_start[xc].to(torch.int64)
+    cnt = torch.clamp(dir_start[xc + 1].to(torch.int64) - lo, max=cap)
+    e = torch.arange(cap, device=kmat.device)
+    valid = (e < cnt[..., None]) & process[..., None]
+    ent = hs[(lo[..., None] + e).clamp(0, hs.shape[0] - 1)]
+    ent_y = ent & MASK_Y
+    val = ent_y ^ yval[..., None]
+    keep = valid & ((val == 0) | (val < ((val & -val) << 2)))
+    same = ((ent >> 61) & 1) == strand[..., None]
+    k = kmat[..., None]
+    cordy = torch.where(same, k, lens.to(torch.int64)[:, None, None] - 1 - k)
+    anc = ent - (cordy << 20) + cordy - ent_y
+    anc = torch.where(same, anc & ~FLAG_STRAND, anc | FLAG_STRAND)
+    return torch.where(keep, anc, 0), keep
+
+
+def _kmat(B: int, L: int, thd_alpha: int, device) -> torch.Tensor:
+    first = SPAN + thd_alpha - 1
+    ks = torch.arange(first, L, thd_alpha, dtype=torch.int64, device=device)
+    return ks[None, :].expand(B, ks.shape[0])
+
+
+def batch_seed_anchors_reference(seqs, lens, dir_start, hs, cap: int,
+                                 thd_alpha: int = THD_ALPHA):
+    """Plain PyTorch version of the scan seeding (linear_tpu.ops.seeding.
+    batch_seed_anchors): seqs (B, L) uint8 codes 0..4, lens (B,) int64 ->
+    (anchors, keep), each (B, P, cap). Runs on any device."""
+    B, L = seqs.shape
+    h, crh, x = _hash_scan_batch(seqs)
+    kmat = _kmat(B, L, thd_alpha, seqs.device)
+    # the streams start at k = 21; every call position k >= 35 is in them
+    h, crh, x = (torch.gather(t, 1, kmat - SPAN) for t in (h, crh, x))
+    xval, yval, strand = _minimizer_xy_batch(seqs, kmat, h, crh, x)
+    in_range = kmat < (lens.to(torch.int64)[:, None] - SPAN)
+    return _probe_and_anchor(kmat, lens, xval, yval, strand, dir_start, hs,
+                             cap, in_range)
+
+
+def _closed_form_states(seqs: torch.Tensor, kmat: torch.Tensor):
+    """Hash states at the call positions without the scan, exact for N-free
+    reads (linear_tpu.ops.seeding._closed_form_states): the window is
+    b[k .. k+21), except for the calls k < 41 that still hold the init
+    window's tail b[20-n_init .. 20) followed by b[41 .. 41+n_app),
+    n_app = min(k - 20, 21); x = 2 * sum(b[k .. k+21)) - 63 + the init bias
+    2 * (sum b[0..20) - sum b[21..41)). Indices are clamped into the row,
+    and the packs add (an N adds 4, as in JAX)."""
+    s = seqs.to(torch.int64)
+    B, L = s.shape
+    t = torch.arange(SPAN, device=s.device)
+    idx = kmat[..., None] + t
+    n_app = (kmat - SPAN + 1).clamp(max=SPAN)[..., None]
+    n_init = SPAN - n_app
+    mixed = torch.where(t < n_init, SPAN - 1 - n_init + t,
+                        2 * SPAN - 1 + t - n_init)
+    pos = torch.where((kmat < 2 * SPAN - 1)[..., None], mixed, idx)
+
+    def gather(p):
+        return torch.gather(s, 1, p.clamp(0, L - 1).reshape(B, -1)).reshape(
+            p.shape)
+
+    w = gather(pos)
+    h = torch.zeros_like(kmat)
+    crh = torch.zeros_like(kmat)
+    for j in range(SPAN):
+        h = (h << 2) + w[..., j]
+        crh = crh + ((3 - w[..., j]) << (2 * j))
+    head = s[:, : 2 * SPAN - 1]
+    bias = 2 * (head[:, : SPAN - 1].sum(1) - head[:, SPAN:].sum(1))
+    x = 2 * gather(idx).sum(-1) - 3 * SPAN + bias[:, None]
+    return h, crh, x
+
+
+def batch_seed_anchors_fast_reference(seqs, lens, dir_start, hs, cap: int,
+                                      thd_alpha: int = THD_ALPHA,
+                                      x_base=None, x_hi=None):
+    """Plain PyTorch version of the closed-form seeding (linear_tpu.ops.
+    seeding.batch_seed_anchors_fast, and with (x_base, x_hi) the probe of
+    one xval shard as in the shard_map bodies of linear_tpu/parallel/
+    mesh.py): (anchors, keep), each (B, P, cap). Runs on any device."""
+    B, L = seqs.shape
+    kmat = _kmat(B, L, thd_alpha, seqs.device)
+    h, crh, x = _closed_form_states(seqs, kmat)
+    xval, yval, strand = _minimizer_xy_batch(seqs, kmat, h, crh, x)
+    in_range = kmat < (lens.to(torch.int64)[:, None] - SPAN)
+    return _probe_and_anchor(kmat, lens, xval, yval, strand, dir_start, hs,
+                             cap, in_range, x_base, x_hi)
+
+
+def compact_anchors_reference(anc: torch.Tensor, keep: torch.Tensor,
+                              m_out: int):
+    """Plain PyTorch version of the stable compaction (linear_tpu.ops.
+    seeding._compact_anchors): the kept anchors of each row in flat
+    (position, slot) order into (B, m_out) int64, zero past them, and the
+    kept count (B,) int32, which may pass m_out (overflow)."""
+    B = anc.shape[0]
+    af = anc.reshape(B, -1)
+    kf = keep.reshape(B, -1)
+    dst = torch.cumsum(kf, 1) - 1
+    sel = kf & (dst < m_out)
+    out = torch.zeros((B, m_out), dtype=torch.int64, device=anc.device)
+    rows = torch.arange(B, device=anc.device)[:, None].expand_as(kf)
+    out[rows[sel], dst[sel]] = af[sel]
+    return out, kf.sum(1).to(torch.int32)
+
+
+def _seed_device(seqs: torch.Tensor, dir_start: torch.Tensor,
+                hs: torch.Tensor, lens: torch.Tensor) -> torch.device:
+    dev = seqs.device
+    for t, name in ((dir_start, "dir_start"), (hs, "hs"), (lens, "lens")):
+        if t.device != dev:
+            raise ValueError(f"seqs on {dev}, {name} on {t.device}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"no seeding kernel for device {dev}")
+    return dev
+
+
+def batch_seed_anchors(seqs, lens, dir_start, hs, cap: int,
+                       thd_alpha: int = THD_ALPHA):
+    """The scan seeding: seqs (B, L) uint8, lens (B,) int64 -> (anchors,
+    keep), each (B, P, cap). CUDA tensors launch kernel K1 of
+    csrc/seed_anchors.cu (and count the launch); CPU tensors run the plain
+    version. Anything else raises."""
+    global scan_launches
+    if _seed_device(seqs, dir_start, hs, lens).type == "cuda":
+        from . import _cuda
+
+        out = _cuda.seed_anchors(seqs, lens, dir_start, hs, cap, thd_alpha,
+                                 scan=True)
+        scan_launches += 1
+        return out
+    return batch_seed_anchors_reference(seqs, lens, dir_start, hs, cap,
+                                        thd_alpha)
+
+
+def batch_seed_anchors_fast(seqs, lens, dir_start, hs, cap: int,
+                            thd_alpha: int = THD_ALPHA, x_base=None,
+                            x_hi=None):
+    """The closed-form seeding (N-free reads), of the whole index or, with
+    (x_base, x_hi), of the xval shard that dir_start and hs hold: (anchors,
+    keep), each (B, P, cap). CUDA tensors launch kernel K2 of
+    csrc/seed_anchors.cu (and count the launch); CPU tensors run the plain
+    version. Anything else raises."""
+    global fast_launches
+    if _seed_device(seqs, dir_start, hs, lens).type == "cuda":
+        from . import _cuda
+
+        lo = 0 if x_base is None else int(x_base)
+        hi = _I64_MAX if x_hi is None else int(x_hi)
+        out = _cuda.seed_anchors(seqs, lens, dir_start, hs, cap, thd_alpha,
+                                 scan=False, x_base=lo, x_hi=hi)
+        fast_launches += 1
+        return out
+    return batch_seed_anchors_fast_reference(seqs, lens, dir_start, hs, cap,
+                                             thd_alpha, x_base, x_hi)
+
+
+def compact_anchors(anc: torch.Tensor, keep: torch.Tensor, m_out: int):
+    """The kept anchors of each row into (B, m_out) and the kept count (B,)
+    int32 (count > m_out: overflow). CUDA tensors launch kernel K3 of
+    csrc/seed_anchors.cu (and count the launch); CPU tensors run the plain
+    version. Anything else raises."""
+    global compact_launches
+    if keep.device != anc.device:
+        raise ValueError(f"anchors on {anc.device}, keep on {keep.device}")
+    if anc.device.type == "cuda":
+        from . import _cuda
+
+        out = _cuda.compact_anchors(anc, keep, m_out)
+        compact_launches += 1
+        return out
+    if anc.device.type == "cpu":
+        return compact_anchors_reference(anc, keep, m_out)
+    raise ValueError(f"no compaction kernel for device {anc.device}")
+
+
+def pad_reads(reads: list, pad_len: int):
+    """Reads (codes 0..4) -> (seqs (B, pad_len) uint8, zero past each read;
+    lens (B,) int64), each read cut to pad_len."""
+    seqs = np.zeros((len(reads), pad_len), dtype=np.uint8)
+    lens = np.zeros((len(reads),), dtype=np.int64)
+    for i, r in enumerate(reads):
+        n = min(len(r), pad_len)
+        seqs[i, :n] = r[:n]
+        lens[i] = n
+    return seqs, lens
+
+
+def seed_anchors_dispatch(reads: list, index: DeviceIndex, pad_len: int,
+                          thd_alpha: int = THD_ALPHA, m_out: int = 1024):
+    """Enqueue the padded seeding of a list of reads (cut to pad_len) and
+    the compaction of each row, without synchronising: returns (comp
+    (B, m_out), count (B,), m_out) on the index's device. A batch without N
+    takes the closed form (K2), one with N the scan (K1); both then K3. The
+    batch goes out in launches of at most GRID_SLOTS grid slots."""
+    seqs, lens = pad_reads(reads, pad_len)
+    seeder = (batch_seed_anchors_fast if not (seqs == 4).any()
+              else batch_seed_anchors)
+    rows = max(1, GRID_SLOTS // max(1, n_positions(pad_len, thd_alpha)
+                                    * index.cap))
+    comps, counts = [], []
+    for r0 in range(0, len(reads), rows):
+        s = torch.from_numpy(seqs[r0: r0 + rows]).to(index.device)
+        ln = torch.from_numpy(lens[r0: r0 + rows]).to(index.device)
+        anc, keep = seeder(s, ln, index.dir_start, index.hs, index.cap,
+                           thd_alpha)
+        comp, count = compact_anchors(anc, keep, m_out)
+        del anc, keep
+        comps.append(comp)
+        counts.append(count)
+    if not comps:
+        empty = torch.zeros((0, m_out), dtype=torch.int64, device=index.device)
+        return empty, torch.zeros((0,), dtype=torch.int32,
+                                  device=index.device), m_out
+    return torch.cat(comps), torch.cat(counts), m_out
+
+
+def seed_anchors_collect(dispatched, n_reads: int) -> list:
+    """Wait for seed_anchors_dispatch: per-read anchor lists (ints) in the
+    emission order; None for reads whose kept anchors overflow m_out."""
+    comp, count, m_out = dispatched
+    comp = comp.cpu().numpy().view(np.uint64)
+    count = count.cpu().numpy()
+    return [None if count[i] > m_out else comp[i, : count[i]].tolist()
+            for i in range(n_reads)]
+
+
+def seed_anchors_batch(reads: list, index: DeviceIndex, pad_len: int,
+                       thd_alpha: int = THD_ALPHA, m_out: int = 8192) -> list:
+    """Per-read anchor lists of a list of reads, as the host's
+    getDIndexMatchAll gives them, or None where m_out overflows."""
+    return seed_anchors_collect(
+        seed_anchors_dispatch(reads, index, pad_len, thd_alpha, m_out),
+        len(reads))

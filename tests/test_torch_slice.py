@@ -113,7 +113,8 @@ def test_serial_block_loop_matches(corpus, outputs):
     for pkg, name in (("linear_tpu_torch", "p_b0"), ("linear_tpu", "j_b0")):
         p = subprocess.run(
             [sys.executable, "-m", pkg, "filter", "r.fa", "g.fa", "-t", "1",
-             "-b", "0", "-o", name, "-ot", "3"], cwd=corpus, env=_env(),
+             "-b", "0", "-o", name, "-ot", "3", "--device", "host"],
+            cwd=corpus, env=_env(),
             capture_output=True, text=True, timeout=600)
         assert p.returncode == 0, p.stderr[-3000:]
     for ext in ("sam", "apf"):
@@ -135,6 +136,22 @@ def test_cuda_without_a_card_exits_nonzero(corpus):
         assert "E[dev]" in p.stderr and "no CUDA device" in p.stderr
         assert "Traceback" not in p.stderr
         assert not os.path.exists(os.path.join(corpus, f"{out}.sam"))
+
+
+def test_default_device_is_cuda(corpus):
+    """Without --device the port runs on the card; without a card it exits
+    non-zero naming the missing CUDA device, and writes no SAM."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: nothing to refuse")
+    p = subprocess.run(
+        [sys.executable, "-m", "linear_tpu_torch", "filter", "r.fa", "g.fa",
+         "-t", "4", "-o", "nodevice"], cwd=corpus, env=_env(),
+        capture_output=True, text=True, timeout=300)
+    assert p.returncode != 0, p.stderr[-2000:]
+    assert "no CUDA device" in p.stderr and "--device cuda" in p.stderr
+    assert not os.path.exists(os.path.join(corpus, "nodevice.sam"))
 
 
 @pytest.fixture(scope="module")
@@ -305,6 +322,9 @@ def test_import_loads_no_jax():
         "        importlib.import_module(m.name)\n"
         "bad = sorted(k for k in sys.modules\n"
         "             if k.split('.')[0] in ('jax', 'jaxlib', 'linear_tpu'))\n"
+        "need = ['linear_tpu_torch.parallel.' + m for m in\n"
+        "        ('mesh', 'dist', 'e2e', 'pipeline')]\n"
+        "bad += [m + ' not imported' for m in need if m not in sys.modules]\n"
         "print(len(sys.modules), bad)\n"
         "sys.exit(1 if bad else 0)\n")
     p = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
