@@ -34,7 +34,12 @@ Phases, each of which raises (exit code != 0) on failure:
      reads seeded by the host query (the card's seed tiers stop at 512
      anchors) beside corpus rows; and one hand-built (256, 512) launch of
      dense rows that overflow W: p2, score, length and overflow exactly
-     equal;
+     equal; then the full DP (chain_dp, linear_tpu's batch_chain_dp)
+     through its entry point on the (256, 512) corpus rows, the (256, 8192)
+     long + corpus rows, the dense rows and the corpus rows shuffled out of
+     order: every column exactly equal to its plain version on the card,
+     and on every row the windowed kernel does not flag equal to the
+     windowed tables on [:n];
   8. the main paths, `python -m linear_tpu_torch filter reads genome -t
      <ncpu> -ot 2` as subprocesses:
        -b 1 in turns with --device cuda, host, host, cuda: all SAM files
@@ -76,7 +81,23 @@ Phases, each of which raises (exit code != 0) on failure:
        = (2, 1) and (1, 2) equal to one process's mapping_step(fast=True),
        and map->SAM of the whole corpus at pad 8192 byte-identical to one
        process's host-seeded run; the ranks' closed-form launches there are
-       the kernel's main-path count.
+       the kernel's main-path count;
+ 10. the banded alignment and the gap anchors, through their entry points
+     (no CLI path runs either kernel, as in linear_tpu):
+       (a) banded_align_scores on the band regions that -a 1's align_cords
+       would align for the first BANDED_READS corpus reads (the Python
+       engine's cords, mapped on the host; align_regions cuts them), at W
+       = 100 (the -a path's band) and 128 (JAX's default): each launch
+       exactly equal to its plain version on the card, and the scores of
+       the first ALN_READS reads' regions equal to the host traceback's
+       (banded_align_cigar_fast);
+       (b) batch_gap_anchors on GAP_ITEMS items cut from the corpus genome
+       (gap_items), some over the cap or over the window limits: count,
+       overflow, anchors and keys up to min(count, m_out) exactly equal to
+       the plain version on the card, each item's result equal to the
+       kernel's, and the first GAP_ORACLE_ITEMS items without overflow
+       equal to the host oracle (map.gap's 9-mer streams and
+       g_create_anchors).
 Every kernel's entry carries its bound (bound(): bytes over the HBM rate or
 operations over the scalar rate, counted from this run's inputs) and, for
 the compaction, the stable sort's time as library_ms.
@@ -121,12 +142,21 @@ MESH_B, MESH_PAD = 256, 8192
 COMPACT_M_OUTS = (1024, 8192)
 BATCH_M_OUT = 8192
 MESH_SHARDS = 4
+# phase 10: the band regions that -a 1 would align for the first
+# BANDED_READS corpus reads, at the -a path's band and at JAX's default;
+# GAP_ITEMS gap-interval items cut from the corpus genome, the first
+# GAP_ORACLE_ITEMS without overflow held against the host oracle
+BANDED_READS, ALN_BAND, BANDED_WS = 512, 100, (100, 128)
+GAP_ITEMS, GAP_ORACLE_ITEMS = 512, 32
 # the least time of a kernel's work: its bytes over the H100 SXM's HBM3 rate,
 # or its integer operations over the card's rate outside the tensor cores
 # (67 T/s, the H100 SXM's float32 non-tensor peak, taken for its integer rate
 # too), whichever is larger
 HBM_BYTES_S = 3.35e12
 SCALAR_OPS_S = 67e12
+# the launches of the last three kernels are those of their own entry
+# points: no CLI path runs them, as no path of linear_tpu runs its
+ENTRY_ONLY = "entry point only: no CLI path runs it, as in linear_tpu"
 
 
 def log(msg: str) -> None:
@@ -214,6 +244,20 @@ def time_ms(fn, iters: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def time_once(fn):
+    """(fn(), its ms by CUDA events): one call, for a plain version too slow
+    to repeat."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def check_kernel(index, genome, rng):
@@ -507,17 +551,21 @@ def check_chain_dp(g_fa, r_fa, genome, threads, rng):
         anc = [(((123000 + int(rng.integers(-150, 150)) + (1 << 20)) << 20)
                 + int(y) + (int(rng.integers(0, 2)) << 61)) for y in ys]
         dense.append(sorted(anc, key=anchor_x, reverse=True))
-    results = []
-    for (N, rs), kind in zip(list(launches.items()) + [(512, dense)],
-                             ("corpus", "corpus", "long + corpus", "dense")):
+    def on_card(rs, N):
         arr = np.zeros((len(rs), N), dtype=np.uint64)
         cnt = np.zeros((len(rs),), dtype=np.int32)
         for k, r in enumerate(rs):
             arr[k, : len(r)] = r
             cnt[k] = len(r)
-        a = torch.from_numpy(arr.view(np.int64)).cuda()
-        c = torch.from_numpy(cnt).cuda()
+        return arr, cnt, torch.from_numpy(arr.view(np.int64)).cuda(), \
+            torch.from_numpy(cnt).cuda()
+
+    results, windowed = [], {}
+    for (N, rs), kind in zip(list(launches.items()) + [(512, dense)],
+                             ("corpus", "corpus", "long + corpus", "dense")):
+        arr, cnt, a, c = on_card(rs, N)
         got = [t.cpu().numpy() for t in CD.chain_dp_windowed(a, c)]
+        windowed[kind, N] = (a, c, got)
         want = [t.cpu().numpy() for t in CD.chain_dp_windowed_reference(a, c)]
         err = _max_abs_err(got, want)
         same = all(np.array_equal(x.astype(np.int64), y.astype(np.int64))
@@ -546,8 +594,78 @@ def check_chain_dp(g_fa, r_fa, genome, threads, rng):
                         "overflow_rows": n_ovf,
                         **bound(arr.nbytes + cnt.nbytes + len(rs) * (12 * N + 1),
                                 40 * edges)})
+
+    # the full DP (linear_tpu's batch_chain_dp) through its entry point on
+    # the same rows, and on the corpus rows shuffled out of order (JAX's
+    # mask, not the C++ loop's break, decides there)
+    shuffled = [[r[k] for k in rng.permutation(len(r))] for r in launches[512]]
+    full_in = [(kind, N, *windowed[kind, N]) for kind, N in (
+        ("corpus", 512), ("long + corpus", 8192), ("dense", 512))]
+    full_in.append(("corpus, shuffled", 512, *on_card(shuffled, 512)[2:], None))
+    CD.full_launches = 0
+    full_out = [CD.chain_dp(a, c) for _, _, a, c, _ in full_in]
+    torch.cuda.synchronize()
+    full_launches = CD.full_launches
+    full = []
+    for (kind, N, a, c, win), got in zip(full_in, full_out):
+        want, plain_ms = time_once(lambda: CD.chain_dp_reference(a, c))
+        got = [t.cpu().numpy() for t in got]
+        want = [t.cpu().numpy() for t in want]
+        err = _max_abs_err(got, want)
+        same = all(np.array_equal(x, y) for x, y in zip(got, want))
+        cnt = c.cpu().numpy()
+        n_win = n_win_same = 0
+        if win is not None:  # rows the windowed kernel does not flag
+            for b in np.flatnonzero(win[3] == 0):
+                n = cnt[b]
+                n_win += 1
+                n_win_same += all(np.array_equal(x[b, :n], y[b, :n])
+                                  for x, y in zip(got, win[:3]))
+        ms = time_ms(lambda: CD.chain_dp(a, c), 3 if N > 512 else 10)
+        edges = full_dp_edges(a, c)
+        log(f"full chain DP check (B, N) = {tuple(a.shape)}, {kind} rows: "
+            f"chained columns {int((want[0] >= 0).sum())}, admitted edges "
+            f"{edges}, equal to the plain version on every column {same}, "
+            f"max_abs_err {err}; equal to the windowed kernel on [:n] of "
+            f"{n_win_same} of {n_win} rows it does not flag; kernel {ms:.4f} "
+            f"ms, plain {plain_ms:.4f} ms")
+        if not same:
+            raise AssertionError(f"the full chain DP kernel disagrees with "
+                                 f"the plain version ({kind} rows)")
+        if n_win_same != n_win or (win is not None and not n_win):
+            raise AssertionError(f"the full DP differs from the windowed "
+                                 f"kernel on rows without overflow ({kind})")
+        # anchors in, three int32 tables out; ~40 integer operations an
+        # admitted edge (getApxChainScore and the compare), every column
+        full.append({"shape": list(a.shape), "rows": kind, "ms": ms,
+                     "plain_ms": plain_ms, "max_abs_err": err,
+                     **bound(a.numel() * 8 + c.numel() * 4 + 12 * a.numel(),
+                             40 * edges)})
+    del windowed, full_in, full_out
     torch.cuda.empty_cache()
-    return results
+    return results, full, full_launches
+
+
+def full_dp_edges(a, c, depth: int = 20, dx_depth: int = 300) -> int:
+    """The (j, i) pairs that the full DP's mask admits on these rows (JAX's
+    eligibility: j < i, j < n, and j >= i - depth or anchor_x[j] -
+    anchor_x[i] < dx_depth), over every column i, counted on the card."""
+    import torch
+
+    from linear_tpu_torch.ops.chain_dp import _anchor_x
+
+    B, N = a.shape
+    ax = _anchor_x(a)
+    jj = torch.arange(N, device=a.device)
+    valid = jj[None, :] < c[:, None].to(torch.int64)
+    total = 0
+    for i0 in range(0, N, 64):
+        ii = torch.arange(i0, min(i0 + 64, N), device=a.device)
+        ok = ((jj[None, :] < ii[:, None])[None] & valid[:, None, :]
+              & ((jj[None, :] >= ii[:, None] - depth)[None]
+                 | (ax[:, None, :] - ax[:, ii, None] < dx_depth)))
+        total += int(ok.sum())
+    return total
 
 
 def compact_by_sort(anc, keep, m_out: int):
@@ -834,6 +952,295 @@ def check_ranks(d, g_fa, r_fa, idx, n_free, threads):
             "sha256": digest}
 
 
+def align_regions(genomes, read, cords_str, cords_end, band):
+    """The (query, reference) band regions that map.align.align_cords
+    aligns for one read's cords: its record runs (if_create_new), the
+    colinear runs of each (merge_cords_bands), cut by cx/cy on the run's
+    strand (map/align.py:194-240; align.py itself stays as it is)."""
+    from linear_tpu_torch.map.align import merge_cords_bands
+    from linear_tpu_torch.out.bamlink import if_create_new
+    from linear_tpu_torch.utils import seqio
+    from linear_tpu_torch.utils.cordscalar import cid, cx, cy, strand
+
+    n = len(cords_str)
+    if n < 2:
+        return []
+    runs, s = [], 1
+    for i in range(1, n):
+        if i == n - 1 or if_create_new(cords_str[i], cords_end[i],
+                                       cords_str[i + 1], cords_end[i + 1],
+                                       8000):
+            runs.append((s, i + 1))
+            s = i + 1
+    rc = seqio.revcomp(read)
+    pairs = []
+    for lo, hi in runs:
+        g = genomes[cid(cords_str[lo])]
+        qseq = rc if strand(cords_str[lo]) else read
+        for rs, re_ in merge_cords_bands(cords_str, cords_end, lo, hi, band):
+            gx0, gx1 = cx(cords_str[rs]), min(cx(cords_end[re_ - 1]), len(g))
+            qy0, qy1 = cy(cords_str[rs]), min(cy(cords_end[re_ - 1]),
+                                              len(qseq))
+            if gx1 > gx0 and qy1 > qy0:
+                pairs.append((qseq[qy0:qy1], g[gx0:gx1]))
+    return pairs
+
+
+def band_cells(nm, W: int) -> int:
+    """The DP cells that a banded alignment computes: over rows 1..n of
+    each pair, the band's columns j in [i - W, i + W) that lie in [0, m]."""
+    cells = 0
+    for n, m in nm.tolist():
+        i = np.arange(1, n + 1)
+        cells += int(np.maximum(0, np.minimum(m, i + W - 1)
+                                - np.maximum(0, i - W) + 1).sum())
+    return cells
+
+
+def check_banded(g_fa, r_fa, threads):
+    """Phase 10 (a): the banded alignment through banded_align_scores on
+    the regions that -a 1 would align for the first BANDED_READS corpus
+    reads (the Python engine's cords, mapped on the host), at each W of
+    BANDED_WS; each launch against the plain version on the card, and the
+    scores of the first ALN_READS reads' regions against the host
+    traceback's. Returns (results, launches of the entry point)."""
+    import torch
+
+    from linear_tpu_torch.map.align import banded_align_cigar_fast
+    from linear_tpu_torch.map.mapper import Mapper, MapperConfig
+    from linear_tpu_torch.ops import align_pallas as AP
+    from linear_tpu_torch.utils import seqio
+
+    t0 = time.time()
+    m = Mapper([g_fa], MapperConfig(threads=threads, bal_flag=0),
+               device="host")
+    m.prepare()
+    n = BANDED_READS
+    block = next(seqio.read_blocks(r_fa))
+    reads = block.seqs[:n]
+    mapped = m.py_map_reads(reads, block.ids[:n], [None] * n, [None] * n,
+                            Mapper.static_chunk_tids(n, threads))
+    per_read = [align_regions(m.genomes, r, cs, ce, ALN_BAND)
+                for r, (cs, ce, _) in zip(reads, mapped)]
+    pairs = [p for rr in per_read for p in rr]
+    n_aln = sum(map(len, per_read[:ALN_READS]))
+    qry, ref = [q for q, _ in pairs], [r for _, r in pairs]
+    log(f"banded alignment regions: {len(pairs)} of the first {n} reads "
+        f"({n_aln} of the first {ALN_READS}), query {min(map(len, qry))}-"
+        f"{max(map(len, qry))} b, reference {min(map(len, ref))}-"
+        f"{max(map(len, ref))} b; mapped and cut on the host in "
+        f"{time.time() - t0:.2f} s")
+    AP.launches = 0
+    scores = {W: AP.banded_align_scores(qry, ref, W=W) for W in BANDED_WS}
+    launches = AP.launches
+    results = []
+    for W in BANDED_WS:
+        packed = AP.pack_pairs(qry, ref, W)
+        a, bpad, nm = (torch.from_numpy(x).cuda() for x in packed)
+        want, plain_ms = time_once(
+            lambda: AP.banded_align_reference(a, bpad, nm, W))
+        want = want.cpu().numpy()
+        same = np.array_equal(scores[W], want)
+        err = _max_abs_err([scores[W]], [want])
+        ms = time_ms(lambda: AP.banded_align(a, bpad, nm, W), 5)
+        cells = band_cells(packed[2], W)
+        log(f"banded alignment check (B, L, KW) = {(len(qry), a.shape[1], 2 * W)}: "
+            f"band cells {cells}, scores {int(want.min())}-{int(want.max())}, "
+            f"equal to the plain version {same}, max_abs_err {err}; kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
+        if not same:
+            raise AssertionError(f"the banded alignment kernel disagrees with "
+                                 f"the plain version at W = {W}")
+        # the packed codes and lengths in, a score out; ~10 integer
+        # operations a band cell (substitution compare and select, diagonal
+        # and vertical candidates and their max, the gap chain's max, the
+        # end-cell checks)
+        results.append({"shape": [len(qry), a.shape[1], 2 * W], "ms": ms,
+                        "plain_ms": plain_ms, "max_abs_err": err,
+                        **bound(sum(x.nbytes for x in packed) + 4 * len(qry),
+                                10 * cells)})
+        del a, bpad, nm
+    t0 = time.time()
+    host = np.array([banded_align_cigar_fast(q, r, W=ALN_BAND)[0]
+                     for q, r in pairs[:n_aln]])
+    n_diff = int((host != scores[ALN_BAND][:n_aln]).sum())
+    log(f"banded scores of the first {ALN_READS} reads' {n_aln} regions at "
+        f"W = {ALN_BAND}: {n_aln - n_diff} equal to the host traceback's "
+        f"(banded_align_cigar_fast, {time.time() - t0:.2f} s)")
+    if n_diff or not n_aln:
+        raise AssertionError(f"{n_diff} banded scores differ from the host "
+                             "traceback's")
+    torch.cuda.empty_cache()
+    return results, launches
+
+
+def gap_oracle(genome, read, gs, ge, rs, re_, a_lo, a_hi):
+    """The host path of an item (tests/test_gap_dev.py:16-26, on the port's
+    gap module): the two 9-mer streams, then g_create_anchors direction 0."""
+    from linear_tpu_torch.map import gap as G
+
+    g_hs = []
+    G.g_map_hs_kmer(genome, g_hs, gs, ge, 9, 5, 0)
+    G.g_map_hs_kmer(read, g_hs, rs, re_, 9, 1, 1)
+    anchors = []
+    G.g_create_anchors(g_hs, anchors, 9, 0, a_lo, a_hi, len(read) - 1, 0, 0,
+                       G.GapParms())
+    return np.asarray(anchors, dtype=np.uint64)
+
+
+def gap_items(genome, rng):
+    """GAP_ITEMS gap-interval items cut from the corpus genome as
+    tests/test_gap_dev.py:45-66 cuts them: genome windows of 200-5,124
+    bases, read windows of 200-4,096 from a read that overlaps the window
+    (mutate's substitutions), every other item bounded to +-500 around the
+    true diagonal. Every eighth window covers one of the genome's
+    dinucleotide microsatellites (60 bases or more), whose 9-mers recur
+    past the cap within one window; every 64th is longer than g_max
+    (5,300 bases) or r_max (4,200) allows. No window holds N (the caller's
+    filter). Returns (items, the oracle's arguments)."""
+    from linear_tpu_torch.ops import gap_dev as GD
+
+    eq = (genome[2:] == genome[:-2]) & (genome[:-2] != 4) \
+        & (genome[1:-1] != genome[:-2])
+    edges = np.diff(np.concatenate([[0], eq.astype(np.int8), [0]]))
+    st, en = np.flatnonzero(edges == 1), np.flatnonzero(edges == -1)
+    micro = st[en - st >= 60]
+    items, wins = [], []
+    while len(items) < GAP_ITEMS:
+        t = len(items)
+        glen = int(rng.integers(200, 5125))
+        rlen = int(rng.integers(200, 4097))
+        if t % 64 == 63:
+            glen, rlen = (5300, rlen) if t % 128 == 63 else (glen, 4200)
+        if t % 8 == 7:
+            gs = int(micro[(t // 8) % len(micro)]) - int(rng.integers(0, 150))
+        else:
+            gs = int(rng.integers(0, len(genome) - 10_000))
+        rs_pos = max(gs + int(rng.integers(-100, 100)), 0)
+        read = mutate(rng, genome[rs_pos: rs_pos + rlen + 500])
+        if (genome[gs: gs + glen + 8] == 4).any() or (read == 4).any():
+            continue
+        a_lo, a_hi = (GD.LLMIN, GD.LLMAX) if t % 2 == 0 else (
+            gs - rs_pos - 500, gs - rs_pos + 500)
+        g_stop = min(gs + glen, len(genome) - 9)
+        r_stop = min(rlen, len(read) - 9)
+        items.append({"gwin": genome[gs: g_stop + 8],
+                      "g_n": max(g_stop - gs, 0), "gpos0": gs,
+                      "rwin": read[: r_stop + 8], "r_n": max(r_stop, 0),
+                      "rpos0": 0, "rvcp": len(read) - 1, "a_lo": a_lo,
+                      "a_hi": a_hi})
+        wins.append((genome, read, gs, gs + glen, 0, rlen, a_lo, a_hi))
+    return items, wins
+
+
+def gap_work(packed, g_max: int, cap: int):
+    """Genome samples, read positions and capped candidate pairs of a gap
+    anchor launch (the work its bound counts), on the card."""
+    import torch
+
+    from linear_tpu_torch.ops import gap_dev as GD
+
+    gseq, g_n, _, rseq, r_n = (torch.from_numpy(x).cuda() for x in packed[:5])
+    gval, _ = GD.stream_vals(gseq)
+    rval, _ = GD.stream_vals(rseq)
+    g_rel = 4 + 5 * torch.arange(g_max, device=gseq.device)
+    g_ok = g_rel[None, :] < g_n[:, None]
+    gv = gval.gather(1, g_rel.clamp(max=gval.shape[1] - 1)
+                     .expand(gseq.shape[0], -1))
+    gv = torch.where(g_ok, gv, 1 << 40).sort(1).values
+    r_ok = torch.arange(rval.shape[1], device=rseq.device)[None, :] \
+        < r_n[:, None]
+    n_match = (torch.searchsorted(gv, rval, right=True)
+               - torch.searchsorted(gv, rval))
+    pairs = torch.where(r_ok, n_match.clamp(max=cap), 0)
+    return int(g_ok.sum()), int(r_ok.sum()), int(pairs.sum())
+
+
+def check_gap(genome, rng):
+    """Phase 10 (b): batch_gap_anchors on GAP_ITEMS corpus items (the
+    defaults g_max 1024, r_max 4096, cap 16, m_out 2048); the launch
+    against the plain version on the card (count, overflow, and anchors
+    and keys up to min(count, m_out)), the entry point's per-item result
+    against the kernel's tensors, and the first GAP_ORACLE_ITEMS items
+    without overflow against the host oracle. Returns (result, launches
+    of the entry point)."""
+    import torch
+
+    from linear_tpu_torch.ops import gap_dev as GD
+
+    g_max, r_max, cap, m_out = 1024, 4096, 16, 2048
+    items, wins = gap_items(genome, rng)
+    GD.launches = 0
+    got = GD.batch_gap_anchors(items, g_max, r_max, cap, m_out)
+    launches = GD.launches
+    packed = GD.pack_items(items, g_max, r_max)
+    args = [torch.from_numpy(x).cuda() for x in packed]
+    kern = [t.cpu().numpy() for t in GD.gap_anchors(*args, g_max, r_max, cap,
+                                                    m_out)]
+    want, plain_ms = time_once(
+        lambda: GD.gap_anchors_reference(*args, g_max, r_max, cap, m_out))
+    want = [t.cpu().numpy() for t in want]
+    defined = np.arange(m_out)[None, :] < np.minimum(want[2], m_out)[:, None]
+    same = (np.array_equal(kern[2], want[2]) and np.array_equal(kern[3], want[3])
+            and np.array_equal(np.where(defined, kern[0], 0),
+                               np.where(defined, want[0], 0))
+            and np.array_equal(np.where(defined, kern[1], 0),
+                               np.where(defined, want[1], 0)))
+    err = _max_abs_err([np.where(defined, x, 0) for x in kern[:2]] + kern[2:],
+                       [np.where(defined, x, 0) for x in want[:2]] + want[2:])
+    # windows too long for g_max or r_max: the packing clips them, so the
+    # kernel's flag misses them and the entry point declares them itself
+    too_long = np.array([it["g_n"] > 5 * g_max + 4 or it["r_n"] > r_max
+                         for it in items])
+    entry_same = all(
+        (g is None) == bool(kern[3][i] or too_long[i])
+        and (g is None or np.array_equal(
+            g, kern[0][i, : kern[2][i]].view(np.uint64)))
+        for i, g in enumerate(got))
+    ms = time_ms(lambda: GD.gap_anchors(*args, g_max, r_max, cap, m_out), 20)
+    n_ovf = sum(x is None for x in got)
+    n_cap = int((want[3] & (want[2] <= m_out) & ~too_long).sum())
+    t0 = time.time()
+    checked = [i for i, x in enumerate(got) if x is not None][:GAP_ORACLE_ITEMS]
+    oracle_same = all(np.array_equal(got[i], gap_oracle(*wins[i]))
+                      for i in checked)
+    samples, positions, cand = gap_work(packed, g_max, cap)
+    kept = int(np.minimum(want[2], m_out).sum())
+    log(f"gap anchors check: {len(items)} items, genome samples {samples}, "
+        f"read positions {positions}, capped pairs {cand}, kept anchors "
+        f"{int(want[2].sum())}, overflow items {n_ovf} ({n_cap} over the "
+        f"cap, {int(too_long.sum())} too long); "
+        f"kernel equal to the plain version {same}, max_abs_err {err}; the "
+        f"entry point's items equal to the kernel's {entry_same}; the first "
+        f"{len(checked)} items without overflow equal to the host oracle "
+        f"{oracle_same} ({time.time() - t0:.2f} s); kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms")
+    if not (same and entry_same):
+        raise AssertionError("the gap anchor kernel disagrees with the plain "
+                             "version")
+    if not oracle_same or len(checked) < GAP_ORACLE_ITEMS:
+        raise AssertionError("the gap anchors differ from the host oracle")
+    if not (n_cap and too_long.any() and n_ovf < len(items) // 2):
+        raise AssertionError("some items, and only a few, should overflow "
+                             "the cap and the window lengths")
+    # the packed windows and item scalars in, the kept anchors and keys,
+    # counts and flags out; ~36 integer operations a 9-mer (genome samples
+    # and read positions), ~3 a step of a read 9-mer's two binary searches
+    # over the samples (log2 g_max steps), ~20 a capped pair
+    # (g_hs_set_anchor, the bounds, the emission key)
+    steps = 2 * int(np.log2(g_max))
+    result = {"shape": [len(items), g_max, r_max, cap, m_out], "ms": ms,
+              "plain_ms": plain_ms, "max_abs_err": err,
+              "overflow_items": n_ovf,
+              **bound(sum(x.nbytes for x in packed) + 16 * kept
+                      + 5 * len(items),
+                      36 * (samples + positions) + 3 * steps * positions
+                      + 20 * cand)}
+    del args
+    torch.cuda.empty_cache()
+    return result, launches
+
+
 def host_seeds(index, read):
     """The host's seeds of a whole read (getDIndexMatchAll)."""
     from linear_tpu_torch.index import dindex as DI
@@ -1023,8 +1430,8 @@ def main() -> int:
     ext_checks = check_extend(g_fa, r_fa, threads)
     torch.cuda.empty_cache()
     db_check = check_devbuild(g_nf, threads)
-    chain_checks = check_chain_dp(g_fa, r_fa, genome, threads,
-                                  np.random.default_rng(SEED + 2))
+    chain_checks, full_checks, full_launches = check_chain_dp(
+        g_fa, r_fa, genome, threads, np.random.default_rng(SEED + 2))
 
     # the main paths, in fresh processes (the pipeline forks before CUDA).
     # -b 1 in turns: cuda, host, host, cuda
@@ -1098,6 +1505,15 @@ def main() -> int:
     mesh = check_ranks(d, g_fa, r_fa, idx, seeding.pop("n_free"), threads)
     log(f"phase 9: {time.time() - t9:.2f} s")
 
+    # phase 10: the banded alignment and the gap anchors
+    t10 = time.time()
+    banded, banded_launches = check_banded(g_fa, r_fa, threads)
+    gap, gap_launches = check_gap(genome, np.random.default_rng(SEED + 4))
+    log(f"phase 10: {time.time() - t10:.2f} s")
+    if not (full_launches and banded_launches and gap_launches):
+        raise AssertionError("an entry point of phase 7 or 10 did not launch "
+                             "its kernel")
+
     def entry(name, source, replaces, launches, checks, main, **extra):
         return {"name": name, "route": "cuda",
                 "source": f"linear_tpu_torch/ops/csrc/{source}",
@@ -1130,6 +1546,14 @@ def main() -> int:
               "linear_tpu/ops/seeding.py:420", seeding["compact_launches"],
               seeding["compact"], seeding["compact"][-1],
               shapes=seeding["compact"]),
+        entry("chain_dp_full", "chain_dp.cu",
+              "linear_tpu/ops/chain_dp.py:86", full_launches, full_checks,
+              full_checks[1], shapes=full_checks, path=ENTRY_ONLY),
+        entry("banded_align", "banded_align.cu",
+              "linear_tpu/ops/align_pallas.py:142", banded_launches, banded,
+              banded[0], shapes=banded, path=ENTRY_ONLY),
+        entry("gap_anchors", "gap_anchors.cu", "linear_tpu/ops/gap_dev.py:76",
+              gap_launches, [gap], gap, path=ENTRY_ONLY),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -133,6 +133,16 @@ def lib() -> ctypes.CDLL:
             dll.lt_compact_anchors.restype = ctypes.c_int
             dll.lt_compact_anchors.argtypes = [
                 p, p, i64, i64, ctypes.c_int, p, p, p]
+            dll.lt_chain_dp_full.restype = ctypes.c_int
+            dll.lt_chain_dp_full.argtypes = [
+                p, p, i64, i64, i64, i64, ctypes.c_int, p, p, p, p]
+            dll.lt_banded_align.restype = ctypes.c_int
+            dll.lt_banded_align.argtypes = [
+                p, p, p, i64, i64, ctypes.c_int, p, p]
+            dll.lt_gap_anchors.restype = ctypes.c_int
+            dll.lt_gap_anchors.argtypes = [
+                p, i64, p, p, p, i64, p, p, p, p, p, i64, ctypes.c_int,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, p, p, p, p, p]
             dll.lt_cuda_error_string.restype = ctypes.c_char_p
             dll.lt_cuda_error_string.argtypes = [ctypes.c_int]
             _LIB = dll
@@ -319,6 +329,98 @@ def chain_dp_windowed(anchors: torch.Tensor, n_anchors: torch.Tensor, W: int,
             int(dx_depth), int(score_type), p2.data_ptr(), score.data_ptr(),
             length.data_ptr(), overflow.data_ptr())
     return p2, score, length, overflow
+
+
+def chain_dp_full(anchors: torch.Tensor, n_anchors: torch.Tensor,
+                  depth: int, dx_depth: int, score_type: int):
+    """Launch the full DP of csrc/chain_dp.cu: anchors (B, N) int64,
+    n_anchors (B,) int32 -> (p2, score, length), each (B, N) int32."""
+    from .chain_dp import MAX_N_FULL
+
+    dev = _cuda_device(anchors, "chain DP")
+    _check(anchors, "anchors", torch.int64, 2, dev)
+    _check(n_anchors, "n_anchors", torch.int32, 1, dev)
+    B, N = anchors.shape
+    if n_anchors.shape[0] != B:
+        raise ValueError("anchors and n_anchors differ in rows")
+    if not 1 <= N <= MAX_N_FULL:
+        raise ValueError(f"N {N} outside 1..{MAX_N_FULL}")
+    if score_type not in (0, 1):
+        raise ValueError(f"score_type {score_type}: use 0 or 1")
+    p2, score, length = (torch.empty((B, N), dtype=torch.int32, device=dev)
+                         for _ in range(3))
+    _launch("chain_dp_full", dev, lib().lt_chain_dp_full, anchors.data_ptr(),
+            n_anchors.data_ptr(), B, N, int(depth), int(dx_depth),
+            int(score_type), p2.data_ptr(), score.data_ptr(),
+            length.data_ptr())
+    return p2, score, length
+
+
+def banded_align(a: torch.Tensor, bpad: torch.Tensor, nm: torch.Tensor,
+                 W: int) -> torch.Tensor:
+    """Launch csrc/banded_align.cu: a (B, L) and bpad (B, L + 2W) uint8,
+    nm (B, 2) int32 -> scores (B,) int32."""
+    from .align_pallas import MAX_KW
+
+    dev = _cuda_device(a, "banded alignment")
+    _check(a, "a", torch.uint8, 2, dev)
+    _check(bpad, "bpad", torch.uint8, 2, dev)
+    _check(nm, "nm", torch.int32, 2, dev)
+    B, L = a.shape
+    if not 1 <= 2 * W <= MAX_KW or L < 1:
+        raise ValueError(f"W {W} outside 1..{MAX_KW // 2}, or L {L} < 1")
+    if bpad.shape != (B, L + 2 * W) or nm.shape != (B, 2):
+        raise ValueError(f"bpad {tuple(bpad.shape)} or nm {tuple(nm.shape)} "
+                         f"do not fit a {tuple(a.shape)} at W {W}")
+    out = torch.empty((B,), dtype=torch.int32, device=dev)
+    _launch("banded_align", dev, lib().lt_banded_align, a.data_ptr(),
+            bpad.data_ptr(), nm.data_ptr(), B, L, int(W), out.data_ptr())
+    return out
+
+
+def gap_anchors(gseq, g_n, gpos0, rseq, r_n, rpos0, rvcp, a_lo, a_hi,
+                g_max: int, r_max: int, cap: int, m_out: int):
+    """Launch csrc/gap_anchors.cu: genome windows gseq (B, GW) and read
+    windows rseq (B, RW) uint8, the (B,) int64 item scalars -> (anchors,
+    keys (B, m_out) int64, count (B,) int32, overflow (B,) bool)."""
+    from .gap_dev import G_MAX_LIMIT, R_MAX_LIMIT, SHAPE_LEN
+
+    dev = _cuda_device(gseq, "gap anchor")
+    _check(gseq, "gseq", torch.uint8, 2, dev)
+    _check(rseq, "rseq", torch.uint8, 2, dev)
+    B, GW = gseq.shape
+    scalars = dict(g_n=g_n, gpos0=gpos0, r_n=r_n, rpos0=rpos0, rvcp=rvcp,
+                   a_lo=a_lo, a_hi=a_hi)
+    for name, t in scalars.items():
+        _check(t, name, torch.int64, 1, dev)
+        if t.shape[0] != B:
+            raise ValueError(f"{name} has {t.shape[0]} rows, gseq {B}")
+    if rseq.shape[0] != B:
+        raise ValueError("gseq and rseq differ in rows")
+    RW = rseq.shape[1]
+    if not (1 <= g_max <= G_MAX_LIMIT and 1 <= r_max <= R_MAX_LIMIT
+            and 1 <= cap and 1 <= m_out < 1 << 31):
+        raise ValueError(f"g_max {g_max} (1..{G_MAX_LIMIT}), r_max {r_max} "
+                         f"(1..{R_MAX_LIMIT}), cap {cap} or m_out {m_out} "
+                         "out of range")
+    if GW < SHAPE_LEN or RW < SHAPE_LEN:
+        raise ValueError(f"windows of {GW} and {RW} bases hold no 9-mer")
+    # the kernel's emission order needs every genome entry's position below
+    # 2^30 (one check of the batch; it synchronises)
+    if bool(((gpos0 < 0) | (gpos0 > (1 << 30) - 5 * g_max)).any()):
+        raise ValueError("a genome window starts below 0 or past "
+                         f"2^30 - 5 g_max ({(1 << 30) - 5 * g_max})")
+    out_a = torch.empty((B, m_out), dtype=torch.int64, device=dev)
+    out_k = torch.empty((B, m_out), dtype=torch.int64, device=dev)
+    count = torch.empty((B,), dtype=torch.int32, device=dev)
+    overflow = torch.empty((B,), dtype=torch.bool, device=dev)
+    _launch("gap_anchors", dev, lib().lt_gap_anchors, gseq.data_ptr(), GW,
+            g_n.data_ptr(), gpos0.data_ptr(), rseq.data_ptr(), RW,
+            r_n.data_ptr(), rpos0.data_ptr(), rvcp.data_ptr(),
+            a_lo.data_ptr(), a_hi.data_ptr(), B, int(g_max), int(r_max),
+            int(cap), int(m_out), out_a.data_ptr(), out_k.data_ptr(),
+            count.data_ptr(), overflow.data_ptr())
+    return out_a, out_k, count, overflow
 
 
 def seed_anchors(seqs: torch.Tensor, lens: torch.Tensor,

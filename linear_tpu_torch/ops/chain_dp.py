@@ -25,9 +25,15 @@ the add; every division truncates like C.
                                translation of linear_tpu's
                                batch_chain_dp_windowed: banded (B, N, W) edge
                                scores, then a scan with a (B, W) ring.
-  chain_dp_reference           the plain full DP (linear_tpu's
-                               batch_chain_dp), an oracle for the tests; no
-                               kernel yet (ROADMAP.md, Queue 1 item 7).
+  chain_dp                     the full DP (linear_tpu's batch_chain_dp):
+                               JAX's mask over every j < i, any row order,
+                               every column computed. CUDA tensors launch
+                               the second kernel of csrc/chain_dp.cu (and
+                               count the launch in `full_launches`); CPU
+                               tensors run chain_dp_reference.
+  chain_dp_reference           its plain PyTorch version: column i's edge
+                               scores and eligibility inside the loop over
+                               i, in O(B N) memory.
 
 ChainsRecords (with root_ptr and f_leaf) are rebuilt on the host from the
 tables by map.chaining.chain_records_from_dp.
@@ -44,9 +50,13 @@ VALUE_MASK_DSTR = ((1 << 60) - 1) | (1 << 61)
 NEG32 = -(2 ** 31) + 1  # the full DP's sentinel (JAX's NEG)
 NEG40 = -(1 << 40)      # the windowed ring's sentinel
 MAX_W = 64              # the kernel's lookback limit (two per lane)
+MAX_N_FULL = 11622      # the full kernel's widest row (20 B an anchor in
+                        # the 227 KB of shared memory a block may take)
 
-# launches of the CUDA kernel by chain_dp_windowed in this process
+# launches of the CUDA kernels by chain_dp_windowed and chain_dp in this
+# process
 launches = 0
+full_launches = 0
 
 
 def _anchor_x(a: torch.Tensor) -> torch.Tensor:
@@ -105,26 +115,26 @@ def chain_dp_reference(anchors: torch.Tensor, n_anchors: torch.Tensor,
                        thd_chain_depth: int = 20, thd_chain_dx_depth: int = 300,
                        score_type: int = 0):
     """The full DP (linear_tpu.ops.chain_dp.batch_chain_dp): anchors (B, N)
-    int64, n_anchors (B,) -> (p2, score, length), each (B, N) int32. Builds
-    the (B, N, N) score matrix: for tests at small N."""
+    int64, n_anchors (B,) -> (p2, score, length), each (B, N) int32. Step i
+    scores the edges (j, i) of every j at once: (B, N) tensors, never the
+    (B, N, N) matrix."""
     B, N = anchors.shape
     dev = anchors.device
     n_anchors = n_anchors.to(device=dev, dtype=torch.int64)
+    score_fn = _score_fn(score_type)
     ax = _anchor_x(anchors)
-    s = _score_fn(score_type)(anchors[:, :, None], anchors[:, None, :])
     jj = torch.arange(N, device=dev)
-    elig = (jj[:, None] < jj[None, :]) & (
-        (jj[:, None] >= jj[None, :] - thd_chain_depth)
-        | ((ax[:, :, None] - ax[:, None, :]) < thd_chain_dx_depth))
-    cand = s.to(torch.int64)
+    valid = jj[None, :] < n_anchors[:, None]
+    neg = torch.full((B, N), NEG32, dtype=torch.int64, device=dev)
     score = torch.zeros((B, N), dtype=torch.int32, device=dev)
     p2 = torch.full((B, N), -1, dtype=torch.int32, device=dev)
     length = torch.ones((B, N), dtype=torch.int32, device=dev)
     for i in range(N):
-        row = cand[:, :, i]
-        ok = elig[:, :, i] & (jj[None, :] < n_anchors[:, None])
-        tot = torch.where(ok & (row > 0), row + score.to(torch.int64),
-                          torch.full_like(row, NEG32))
+        row = score_fn(anchors, anchors[:, i: i + 1]).to(torch.int64)
+        ok = valid & (jj < i)[None, :] & (
+            (jj >= i - thd_chain_depth)[None, :]
+            | ((ax - ax[:, i: i + 1]) < thd_chain_dx_depth))
+        tot = torch.where(ok & (row > 0), row + score.to(torch.int64), neg)
         max_j = torch.argmax(tot, dim=1)  # the first (smallest j) on ties
         new_max = tot.gather(1, max_j[:, None])[:, 0]
         found = new_max > 0
@@ -133,6 +143,29 @@ def chain_dp_reference(anchors: torch.Tensor, n_anchors: torch.Tensor,
         length[:, i] = torch.where(
             found, length.gather(1, max_j[:, None])[:, 0] + 1, 1)
     return p2, score, length
+
+
+def chain_dp(anchors: torch.Tensor, n_anchors: torch.Tensor,
+             thd_chain_depth: int = 20, thd_chain_dx_depth: int = 300,
+             score_type: int = 0):
+    """One launch of the full DP: (p2, score, length), each (B, N) int32.
+    CUDA tensors launch the hand-written kernel (and count the launch); CPU
+    tensors run the plain PyTorch version. Anything else raises."""
+    global full_launches
+    dev = anchors.device
+    if n_anchors.device != dev:
+        raise ValueError(f"anchors on {dev}, counts on {n_anchors.device}")
+    if dev.type == "cuda":
+        from . import _cuda
+
+        out = _cuda.chain_dp_full(anchors, n_anchors, thd_chain_depth,
+                                  thd_chain_dx_depth, score_type)
+        full_launches += 1
+        return out
+    if dev.type == "cpu":
+        return chain_dp_reference(anchors, n_anchors, thd_chain_depth,
+                                  thd_chain_dx_depth, score_type)
+    raise ValueError(f"no chain DP kernel for device {dev}")
 
 
 def chain_dp_windowed_reference(anchors: torch.Tensor, n_anchors: torch.Tensor,

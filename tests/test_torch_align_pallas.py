@@ -1,0 +1,198 @@
+"""linear_tpu_torch.ops.align_pallas against linear_tpu.ops.align_pallas:
+the port's banded_align_scores on the CPU (the plain version of the
+kernel) against JAX's Pallas kernel in interpret mode and its numpy oracle,
+for several seeds and band half-widths W (64 and 128 of JAX's tests, 100 of
+the -a path, and narrow bands), on mutated, unrelated and length-skewed
+pairs, empty queries and references, and pairs with N on both sides; the
+host traceback against JAX's; and the dispatch. Scores are integers: every
+comparison is exact (tolerance 0)."""
+import re
+
+import numpy as np
+import pytest
+import torch
+
+from linear_tpu.ops import align_pallas as JAP
+from linear_tpu_torch.ops import align_pallas as AP
+
+
+def _mutate(seq, rng, err=0.1):
+    """tests/test_align_pallas.py's generator: substitutions, insertions,
+    deletions."""
+    out = []
+    for c in seq:
+        x = rng.random()
+        if x < err * 0.4:
+            out.append(int(rng.integers(0, 4)))
+        elif x < err * 0.7:
+            out.append(int(rng.integers(0, 4)))
+            out.append(int(c))
+        elif x < err:
+            continue
+        else:
+            out.append(int(c))
+    return np.array(out, dtype=np.uint8)
+
+
+def _pairs(seed, W):
+    """Mutated, unrelated and length-skewed (by more than W) pairs, pairs
+    with N (4) on both sides, an empty query and an empty reference."""
+    rng = np.random.default_rng(seed)
+    qry, ref = [], []
+    for i in range(8):
+        base = rng.integers(0, 4, int(rng.integers(30, 160))).astype(np.uint8)
+        q = _mutate(base, rng)
+        r = base.copy()
+        if i % 4 == 1:  # unrelated
+            r = rng.integers(0, 4, len(base)).astype(np.uint8)
+        if i % 4 == 2:  # skewed: the reference longer by more than W
+            r = np.concatenate([rng.integers(0, 4, W + 9).astype(np.uint8), r])
+        if i % 4 == 3:  # N on both sides, some at the same places
+            q[::6] = 4
+            r[::6] = 4
+            r[1::9] = 4
+        qry.append(q)
+        ref.append(r)
+    qry.append(rng.integers(0, 4, W + 20).astype(np.uint8))  # skewed query
+    ref.append(rng.integers(0, 4, 12).astype(np.uint8))
+    qry += [np.zeros(0, np.uint8), rng.integers(0, 4, 25).astype(np.uint8)]
+    ref += [rng.integers(0, 4, 30).astype(np.uint8), np.zeros(0, np.uint8)]
+    return qry, ref
+
+
+@pytest.mark.parametrize("W", [64, 100, 128])
+@pytest.mark.parametrize("seed", [17, 29, 41, 53])
+def test_scores_match_jax_and_oracle(seed, W):
+    qry, ref = _pairs(seed, W)
+    got = AP.banded_align_scores(qry, ref, W=W, device="cpu")
+    want = JAP.banded_align_scores(qry, ref, W=W)
+    assert got.dtype == np.int32 and got.shape == (len(qry),)
+    assert np.array_equal(got, want)
+    oracle = [JAP.banded_align_oracle(q, r, W=W) for q, r in zip(qry, ref)]
+    assert got.tolist() == oracle
+    assert got.tolist() == [AP.banded_align_oracle(q, r, W=W)
+                            for q, r in zip(qry, ref)]
+    assert got[-2:].tolist() == [0, 0] and got.max() > 100
+
+
+def _kind_pairs(kind, W, rng):
+    """Batches of one kind of pair, each probing one edge of the kernel:
+    identical pairs (the diagonal alone), drift (deletions push the best
+    path toward the band's edge), query or reference longer by more than W,
+    runs of N on both sides (N matches N), tiny pairs (1-10 bases), and
+    lengths at the 128-base padding boundaries."""
+    qry, ref = [], []
+    for t in range(6):
+        base = rng.integers(0, 4, int(rng.integers(60, 300))).astype(np.uint8)
+        q, r = base.copy(), base.copy()
+        if kind == "drift":
+            keep = rng.random(len(base)) > 0.25
+            q = base[keep]
+        elif kind == "skew_query":
+            q = np.concatenate([base, rng.integers(0, 4, W + 5 + 7 * t)
+                                .astype(np.uint8)])
+        elif kind == "skew_ref":
+            r = np.concatenate([rng.integers(0, 4, W + 5 + 7 * t)
+                                .astype(np.uint8), base])
+        elif kind == "n_runs":
+            q = _mutate(base, rng)
+            q[5: 5 + 4 * t] = 4
+            r[len(r) // 2: len(r) // 2 + 3 * t + 1] = 4
+        elif kind == "tiny":
+            q = rng.integers(0, 4, t + 1).astype(np.uint8)
+            r = rng.integers(0, 4, 10 - t).astype(np.uint8)
+        elif kind == "pad_edge":
+            n = (128, 129, 127, 256, 255, 257)[t]
+            q = rng.integers(0, 4, n).astype(np.uint8)
+            r = _mutate(q, rng, err=0.05)[:n]
+        qry.append(q)
+        ref.append(r)
+    return qry, ref
+
+
+@pytest.mark.parametrize("W", [64, 100, 128])
+@pytest.mark.parametrize("kind", ["identical", "drift", "skew_query",
+                                  "skew_ref", "n_runs", "tiny", "pad_edge"])
+def test_pair_kinds_match_jax(kind, W):
+    """One kind of pair a batch, against JAX's kernel and the oracle."""
+    rng = np.random.default_rng(sum(map(ord, kind)) + W)
+    qry, ref = _kind_pairs(kind, W, rng)
+    got = AP.banded_align_scores(qry, ref, W=W, device="cpu")
+    assert np.array_equal(got, JAP.banded_align_scores(qry, ref, W=W))
+    assert got.tolist() == [JAP.banded_align_oracle(q, r, W=W)
+                            for q, r in zip(qry, ref)]
+    if kind == "identical":
+        assert got.tolist() == [3 * len(q) for q in qry]
+
+
+@pytest.mark.parametrize("W", [1, 5])
+def test_narrow_bands_and_fixed_L(W):
+    """Bands narrower than the length skew, and an L wider than needed:
+    equal to JAX's kernel. (JAX's oracle is not the yardstick here: it
+    starts free begin gaps H[i][0] = 0 in every row, the kernel only in
+    the band's rows i <= W, so the two differ at W = 1.)"""
+    qry, ref = _pairs(3, W)
+    got = AP.banded_align_scores(qry, ref, W=W, L=384, device="cpu")
+    assert np.array_equal(got, JAP.banded_align_scores(qry, ref, W=W, L=384))
+    assert got.max() > 0
+
+
+@pytest.mark.parametrize("seed", [23, 41])
+def test_cigar_matches_jax(seed):
+    """The port's host traceback equals JAX's, and its CIGAR replays to its
+    score."""
+    rng = np.random.default_rng(seed)
+    for trial in range(4):
+        base = rng.integers(0, 4, int(rng.integers(40, 160))).astype(np.uint8)
+        q = _mutate(base, rng)
+        r = base if trial % 2 else np.concatenate(
+            [rng.integers(0, 4, 30).astype(np.uint8), base])
+        got = AP.banded_align_cigar(q, r, W=64)
+        assert got == JAP.banded_align_cigar(q, r, W=64)
+        score, cig, (q0, q1), (r0, r1) = got
+        i, j, s = q0, r0, 0
+        for cnt, op in re.findall(r"(\d+)([=XID])", cig):
+            for _ in range(int(cnt)):
+                if op in "=X":
+                    s += AP.S_MATCH if q[i] == r[j] else AP.S_MISMATCH
+                    i, j = i + 1, j + 1
+                else:
+                    s += AP.S_GAP
+                    i, j = (i + 1, j) if op == "I" else (i, j + 1)
+        assert (i, j, s) == (q1, r1, score)
+
+
+def test_dispatch():
+    """CPU tensors run the plain version and launch nothing; other devices,
+    mixed devices and misshapen inputs raise."""
+    qry, ref = _pairs(5, 64)
+    a, bpad, nm = (torch.from_numpy(x) for x in AP.pack_pairs(qry, ref, 64))
+    assert a.dtype == torch.uint8 and nm.shape == (len(qry), 2)
+    assert bpad.shape == (len(qry), a.shape[1] + 128)
+    before = AP.launches
+    got = AP.banded_align(a, bpad, nm, 64)
+    assert torch.equal(got, AP.banded_align_reference(a, bpad, nm, 64))
+    assert AP.launches == before
+    with pytest.raises(ValueError):
+        AP.banded_align(a.to("meta"), bpad.to("meta"), nm.to("meta"), 64)
+    with pytest.raises(ValueError):
+        AP.banded_align(a, bpad.to("meta"), nm, 64)
+    with pytest.raises(ValueError):
+        AP.banded_align(a, bpad, nm, 32)
+    with pytest.raises(ValueError):
+        AP.pack_pairs(qry, ref, 64, L=16)
+    assert AP.banded_align_scores([], [], device="cpu").shape == (0,)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_matches_plain():
+    """The hand-written kernel against the plain version on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode "
+                    "(chip_smoke.py runs this check on the corpus' regions)")
+    for W in (1, 64, 100, 128, 512):
+        qry, ref = _pairs(7, W)
+        args = [torch.from_numpy(x).cuda()
+                for x in AP.pack_pairs(qry, ref, W)]
+        assert torch.equal(AP.banded_align(*args, W),
+                           AP.banded_align_reference(*args, W))

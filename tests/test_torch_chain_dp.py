@@ -5,8 +5,10 @@ overflow, edge rows (0-2 anchors, ties, 64-bit patterns whose anchor-x add
 passes bit 63) and rows from corpus reads after the Mapper's pre-pass; the
 plain full DP against JAX's `batch_chain_dp` and the windowed DP on rows
 without overflow; ChainsRecords through `chain_records_from_dp` against
-`get_best_chains` on the cases of tests/test_device.py; and the Mapper's
-`_device_chain_block` on device cpu. Every comparison is exact."""
+`get_best_chains` on the cases of tests/test_device.py; the full DP's
+dispatch `chain_dp` against JAX's `batch_chain_dp` on sorted, unsorted and
+padded rows, every column; and the Mapper's `_device_chain_block` on device
+cpu. Every comparison is exact."""
 import os
 import sys
 
@@ -206,6 +208,52 @@ def test_dispatch():
                              torch.from_numpy(cnt))
 
 
+def _full_rows(kind, seed):
+    """Rows for the full DP: sorted (the pre-pass order), unsorted (the
+    same rows shuffled: JAX's mask, not the C++ break, decides), or sorted
+    rows in a wide padded table (columns past n are computed too)."""
+    rng = np.random.default_rng(seed)
+    rows = _random_rows(seed)[:8] + [[], _random_row(rng, 1)]
+    if kind == "unsorted":
+        rows = [[int(v) for v in rng.permutation(np.array(r, np.uint64))]
+                for r in rows]
+    return _pack(rows, N=512 if kind == "padded" else 256)
+
+
+@pytest.mark.parametrize("depths", [(20, 300), (5, 100)],
+                         ids=["default", "shallow"])
+@pytest.mark.parametrize("score_type", [0, 1])
+@pytest.mark.parametrize("kind", ["sorted", "unsorted", "padded"])
+def test_full_dp_matches_jax(kind, score_type, depths):
+    """chain_dp on the CPU (the plain full DP) against JAX's batch_chain_dp
+    on every column, at the default depth and dx-depth and at shallower
+    ones."""
+    arr, cnt = _full_rows(kind, 13 + score_type + depths[0])
+    got = [t.numpy() for t in CD.chain_dp(
+        torch.from_numpy(arr), torch.from_numpy(cnt), *depths,
+        score_type=score_type)]
+    want = JCD.batch_chain_dp(jnp.asarray(arr), jnp.asarray(cnt), *depths,
+                              score_type=score_type)
+    _assert_same(got, [np.asarray(t) for t in want])
+    assert (got[0] >= 0).sum() > 100
+
+
+def test_full_dp_dispatch():
+    """CPU tensors run the plain full DP and launch nothing; other devices
+    and mixed devices raise."""
+    arr, cnt = _full_rows("sorted", 7)
+    a, c = torch.from_numpy(arr), torch.from_numpy(cnt)
+    before = CD.full_launches
+    got = CD.chain_dp(a, c, thd_chain_depth=5, thd_chain_dx_depth=100)
+    want = CD.chain_dp_reference(a, c, 5, 100)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+    assert CD.full_launches == before
+    with pytest.raises(ValueError):
+        CD.chain_dp(a.to("meta"), c.to("meta"))
+    with pytest.raises(ValueError):
+        CD.chain_dp(a, c.to("meta"))
+
+
 @pytest.mark.parametrize("chain_w,max_n", [(64, 8192), (4, 20)])
 def test_device_chain_block_accounts_for_every_read(tmp_path, chain_w, max_n):
     """Mapper._device_chain_block on device cpu: every seeded read is
@@ -267,3 +315,19 @@ def test_cuda_kernel_matches_plain(corpus_rows):
             want = [t.cpu().numpy() for t in CD.chain_dp_windowed_reference(
                 a, c, W=W, score_type=score_type)]
             _assert_same(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_full_kernel_matches_plain():
+    """The full-DP kernel against its plain version on the card, every
+    column."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode "
+                    "(chip_smoke.py runs this check at the Mapper's widths)")
+    for kind in ("sorted", "unsorted", "padded"):
+        arr, cnt = _full_rows(kind, 3)
+        a, c = torch.from_numpy(arr).cuda(), torch.from_numpy(cnt).cuda()
+        for score_type in (0, 1):
+            got = CD.chain_dp(a, c, score_type=score_type)
+            want = CD.chain_dp_reference(a, c, score_type=score_type)
+            assert all(torch.equal(x, y) for x, y in zip(got, want))

@@ -324,6 +324,8 @@ def test_import_loads_no_jax():
         "             if k.split('.')[0] in ('jax', 'jaxlib', 'linear_tpu'))\n"
         "need = ['linear_tpu_torch.parallel.' + m for m in\n"
         "        ('mesh', 'dist', 'e2e', 'pipeline')]\n"
+        "need += ['linear_tpu_torch.ops.' + m for m in\n"
+        "         ('gap_dev', 'align_pallas', 'chain_dp')]\n"
         "bad += [m + ' not imported' for m in need if m not in sys.modules]\n"
         "print(len(sys.modules), bad)\n"
         "sys.exit(1 if bad else 0)\n")
