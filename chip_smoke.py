@@ -73,15 +73,24 @@ Phases, each of which raises (exit code != 0) on failure:
        read with N and MESH_B N-free reads: each read gives exactly the
        host seeds of query_anchors or is declared an overflow; the launches
        of both kernels are counted on this run;
+       (a'') the anchor sort kernel (sort_anchors: the mapping steps' stable
+       sort by descending anchor-x) against its plain version on the card,
+       at n_max 256 and 8192, on the scan grid of the corpus reads with N,
+       on the closed-form grid of N-free reads, and on hand-built rows of
+       the same width (more kept than n_max, every slot kept with few
+       distinct anchor-x, nothing kept, exactly n_max kept): every column
+       and count exactly equal; torch.sort(stable=True) + gather timed
+       beside it as the library call;
        (b) mapping_step with either seeder at (MESH_B, MESH_PAD), n_max
-       256, against the same step built from the plain versions on the
-       card: all six outputs equal;
+       256 (the sort kernel inside), against the same step built from the
+       plain versions on the card: all six outputs equal;
        (c) two spawned ranks on the card with gloo (`python -m
        linear_tpu_torch.parallel.e2e`): the grid mapping step at (dp, ix)
        = (2, 1) and (1, 2) equal to one process's mapping_step(fast=True),
        and map->SAM of the whole corpus at pad 8192 byte-identical to one
        process's host-seeded run; the ranks' closed-form launches there are
-       the kernel's main-path count;
+       that kernel's main-path count, and the ranks' anchor sort launches
+       in the grid steps the sort kernel's;
  10. the banded alignment and the gap anchors, through their entry points
      (no CLI path runs either kernel, as in linear_tpu):
        (a) banded_align_scores on the band regions that -a 1's align_cords
@@ -89,7 +98,7 @@ Phases, each of which raises (exit code != 0) on failure:
        engine's cords, mapped on the host; align_regions cuts them), at W
        = 100 (the -a path's band) and 128 (JAX's default): each launch
        exactly equal to its plain version on the card, and the scores of
-       the first ALN_READS reads' regions equal to the host traceback's
+       the first ALN_ORACLE_READS reads' regions equal to the host traceback's
        (banded_align_cigar_fast);
        (b) batch_gap_anchors on GAP_ITEMS items cut from the corpus genome
        (gap_items), some over the cap or over the window limits: count,
@@ -97,10 +106,20 @@ Phases, each of which raises (exit code != 0) on failure:
        the plain version on the card, each item's result equal to the
        kernel's, and the first GAP_ORACLE_ITEMS items without overflow
        equal to the host oracle (map.gap's 9-mer streams and
-       g_create_anchors).
+       g_create_anchors);
+ 11. the other configurations of the CLI, each `filter ... --device cuda`
+     against `--device host` as subprocesses, every output file
+     byte-identical: -b 1 -ot 15 on the whole corpus (.sam, .apf, .bam,
+     _pbsv.bam; the cuda run seeds on the card, counted as in phase 8);
+     -i 2 (HIndex, native engine) on the whole corpus; -i 3 (SIndex), -f 0
+     and -f 1 (1_16 and 1_32 features) on the first OTHER_READS reads (the
+     Python engine); --save-index, then --load-index of that file with
+     -i 1, whose SAM must be phase 8's. With -i 2/3 and -f 0/1 the device
+     does no work (as in linear_tpu), the cuda run must say so, and the
+     cuda and host runs of each go side by side.
 Every kernel's entry carries its bound (bound(): bytes over the HBM rate or
 operations over the scalar rate, counted from this run's inputs) and, for
-the compaction, the stable sort's time as library_ms.
+the compaction and the anchor sort, the stable sort's time as library_ms.
 It prints the kernels as one JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Without a CUDA device, or without the rest
 of the repository beside it, it exits 1 before printing any result.
@@ -114,6 +133,7 @@ import re
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -135,18 +155,25 @@ CHAIN_B = 256
 # the Python-engine runs take the first reads of the corpus (on 8 cores the
 # engine maps some 470 reads/s at -b 1 and 65 at -b 0, and -a 1 about 5):
 # the genome stays whole
-PY_B1_READS, PY_B0_READS, ALN_READS = 2048, 512, 48
+PY_B1_READS, PY_B0_READS, ALN_READS = 2048, 256, 24
+# phase 11's Python-engine configurations (-i 3, -f 0, -f 1)
+OTHER_READS = 512
 # phase 9: the padded seeding kernels at (rows, pad) with the index's cap,
 # the compaction's m_out tiers, and seed_anchors_batch's m_out
 MESH_B, MESH_PAD = 256, 8192
 COMPACT_M_OUTS = (1024, 8192)
+# the anchor sort's n_max: chip_smoke's mapping steps take 256; 8192 is the
+# chain DP's widest launch
+SORT_N_MAXES = (256, 8192)
 BATCH_M_OUT = 8192
 MESH_SHARDS = 4
 # phase 10: the band regions that -a 1 would align for the first
-# BANDED_READS corpus reads, at the -a path's band and at JAX's default;
+# BANDED_READS corpus reads, at the -a path's band and at JAX's default, the
+# first ALN_ORACLE_READS reads' regions held against the host traceback;
 # GAP_ITEMS gap-interval items cut from the corpus genome, the first
 # GAP_ORACLE_ITEMS without overflow held against the host oracle
 BANDED_READS, ALN_BAND, BANDED_WS = 512, 100, (100, 128)
+ALN_ORACLE_READS = 48
 GAP_ITEMS, GAP_ORACLE_ITEMS = 512, 32
 # the least time of a kernel's work: its bytes over the H100 SXM's HBM3 rate,
 # or its integer operations over the card's rate outside the tensor cores
@@ -690,6 +717,102 @@ def compact_by_sort(anc, keep, m_out: int):
     return out, count
 
 
+def sort_by_library(anc, keep, n_max: int):
+    """The anchor sort as one PyTorch stable sort and a gather
+    (linear_tpu's own formulation): the library yardstick of the sort
+    kernel, used nowhere in the port."""
+    import torch
+
+    from linear_tpu_torch.ops import chain_dp as CD
+
+    B = anc.shape[0]
+    flat = anc.reshape(B, -1)
+    kflat = keep.reshape(B, -1)
+    key = torch.where(kflat, -CD._anchor_x(flat), 1 << 62)
+    order = torch.sort(key, dim=1, stable=True).indices[:, :n_max]
+    return (torch.gather(flat, 1, order),
+            kflat.sum(1).clamp(max=n_max).to(torch.int32))
+
+
+def hand_sort_rows(rng, n: int, n_max: int):
+    """Rows of n slots for the sort kernel: more kept than n_max; every
+    slot kept with 64 distinct anchor-x (ties); nothing kept; exactly n_max
+    kept; one short of it; one kept slot, the row's last."""
+    import torch
+
+    rows = 6
+    anc = ((rng.integers(0, 2, (rows, n)) << 61)
+           | (rng.integers(0, 1 << 30, (rows, n)) << 20)
+           | rng.integers(0, 1 << 20, (rows, n))).astype(np.int64)
+    anc[1] = ((rng.integers(1 << 21, (1 << 21) + 32, n) << 20)
+              | rng.integers(0, 32, n)).astype(np.int64)
+    keep = np.zeros((rows, n), dtype=bool)
+    keep[0, rng.choice(n, 3 * n_max + 17, replace=False)] = True
+    keep[1] = True
+    keep[3, rng.choice(n, n_max, replace=False)] = True
+    keep[4, rng.choice(n, n_max - 1, replace=False)] = True
+    keep[5, n - 1] = True
+    return torch.from_numpy(anc).cuda(), torch.from_numpy(keep).cuda()
+
+
+def check_anchor_sort(name, anc, keep, rng, hand_rows: bool) -> list:
+    """Phase 9 (a''): the anchor sort kernel against its plain version on
+    the card, every column and count, on the seeding grid `name` (anchors
+    and keep at (MESH_B, P, cap)) and, with hand_rows, on hand-built rows
+    of the same width, at each n_max of SORT_N_MAXES. Returns the grid's
+    checks, n_max 256 first."""
+    import torch
+
+    from linear_tpu_torch.ops import chain_dp as CD
+
+    out = []
+    B, n = anc.shape[0], anc[0].numel()
+    kept_rows = keep.reshape(B, -1).sum(1)
+    for n_max in SORT_N_MAXES:
+        got = CD.sort_anchors(anc, keep, n_max)
+        want = CD.sort_anchors_reference(anc, keep, n_max)
+        lib = sort_by_library(anc, keep, n_max)
+        torch.cuda.synchronize()
+        same = _equal_all(got, want) and _equal_all(got, lib)
+        ms = time_ms(lambda: CD.sort_anchors(anc, keep, n_max), 20)
+        plain_ms = time_ms(lambda: CD.sort_anchors_reference(
+            anc, keep, n_max), 3)
+        lib_ms = time_ms(lambda: sort_by_library(anc, keep, n_max), 3)
+        kept = int(kept_rows.sum())
+        log(f"anchor sort check (B, n, n_max) = {(B, n, n_max)}, {name}: "
+            f"kept {kept} (a row at most {int(kept_rows.max())}), rows "
+            f"over n_max {int((kept_rows > n_max).sum())}, every column "
+            f"and count equal to the plain version and to the library "
+            f"sort {same}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"torch.sort(stable=True) + gather {lib_ms:.4f} ms")
+        if not same:
+            raise AssertionError(f"the anchor sort kernel disagrees on "
+                                 f"{name} at n_max {n_max}")
+        # what this grid needs: every keep flag, the kept anchors (no
+        # other slot is read), the rows and counts out; ~3 operations a
+        # flag and ~60 a kept anchor (six radix passes)
+        out.append({"shape": [B, n, n_max], "rows": name, "ms": ms,
+                    "plain_ms": plain_ms, "library_ms": lib_ms,
+                    "max_abs_err": 0, "kept": kept,
+                    **bound(B * n + 8 * kept + B * (8 * n_max + 4),
+                            3 * B * n + 60 * kept)})
+    for n_max in SORT_N_MAXES if hand_rows else ():
+        anc, keep = hand_sort_rows(rng, n, n_max)
+        got = CD.sort_anchors(anc, keep, n_max)
+        want = CD.sort_anchors_reference(anc, keep, n_max)
+        torch.cuda.synchronize()
+        same = _equal_all(got, want)
+        ms = time_ms(lambda: CD.sort_anchors(anc, keep, n_max), 5)
+        log(f"anchor sort check, hand-built rows (B, n, n_max) = "
+            f"{(anc.shape[0], n, n_max)}: kept a row "
+            f"{keep.sum(1).tolist()}, counts {got[1].tolist()}, every column "
+            f"and count equal {same}; kernel {ms:.4f} ms")
+        if not same:
+            raise AssertionError(f"the anchor sort kernel disagrees on the "
+                                 f"hand-built rows at n_max {n_max}")
+    return out
+
+
 def _grid_bound(seqs, lens, P, cap, kept, scan: bool) -> dict:
     """Bytes and operations of a padded seeding launch: the reads in, two
     dir words a call position and one hs entry a kept slot (a lower count
@@ -711,10 +834,11 @@ def _equal_all(got, want) -> bool:
 
 
 def check_padded_seeding(r_fa, idx, genome, rng):
-    """Phase 9 (a), (a') and (b): the scan (K1), closed-form (K2) and
-    compaction (K3) kernels against their plain versions on the card;
-    seed_anchors_batch against the host seeds; mapping_step with both
-    seeders against the same step built from the plain versions."""
+    """Phase 9 (a), (a'), (a'') and (b): the scan (K1), closed-form (K2),
+    compaction (K3) and anchor sort kernels against their plain versions
+    on the card; seed_anchors_batch against the host seeds; mapping_step
+    with both seeders against the same step built from the plain
+    versions."""
     import torch
 
     from linear_tpu_torch.index import dindex as DI
@@ -801,6 +925,10 @@ def check_padded_seeding(r_fa, idx, genome, rng):
                                "max_abs_err": 0, "overflow_rows": n_ovf,
                                **bound(B * n + 8 * kept + B * (8 * m_out + 4),
                                        3 * B * n)})
+    # the anchor sort on that grid, and on the hand-built rows
+    out["sort"] = check_anchor_sort(
+        "scan grid, corpus reads, every read with N", anc, keep, rng,
+        hand_rows=True)
     del anc, keep, scan_grid
 
     # K2: N-free corpus reads, unsharded and in MESH_SHARDS xval shards
@@ -841,7 +969,10 @@ def check_padded_seeding(r_fa, idx, genome, rng):
         f"plain version, their sum equal to the unsharded grid {psum}")
     if not psum:
         raise AssertionError("the shards' sum differs from the unsharded grid")
-    del full, tot_a, tot_k
+    del tot_a, tot_k
+    out["sort"] += check_anchor_sort(
+        "closed-form grid, N-free corpus reads", *full, rng, hand_rows=False)
+    del full
 
     # (b) mapping_step, both seeders, against the plain versions on the card
     for fast in (False, True):
@@ -849,8 +980,8 @@ def check_padded_seeding(r_fa, idx, genome, rng):
                               fast=fast)
         seed = (SD.batch_seed_anchors_fast_reference if fast
                 else SD.batch_seed_anchors_reference)
-        srt, n = MS.sort_anchors(*seed(s, ln, index.dir_start, index.hs, cap),
-                                 256)
+        srt, n = CD.sort_anchors_reference(
+            *seed(s, ln, index.dir_start, index.hs, cap), 256)
         want = (srt, n, *CD.chain_dp_windowed_reference(srt, n))
         torch.cuda.synchronize()
         same = _equal_all(got, want)
@@ -915,8 +1046,9 @@ def check_ranks(d, g_fa, r_fa, idx, n_free, threads):
     """Phase 9 (c): two ranks on the one card (gloo), spawned: the grid
     mapping step at (2, 1) and (1, 2) against one process's
     mapping_step(fast=True), and map->SAM of the whole corpus against one
-    process's host-seeded run. Returns the closed-form launches of the
-    ranks' map run (the mesh path) and what it printed."""
+    process's host-seeded run. Returns the anchor sort launches of the
+    ranks' steps run, the closed-form launches of their map run (the mesh
+    path) and what it printed."""
     from linear_tpu_torch.ops import seeding as SD
 
     seqs, lens = SD.pad_reads(n_free, MESH_PAD)
@@ -925,9 +1057,14 @@ def check_ranks(d, g_fa, r_fa, idx, n_free, threads):
     stdout, wall = _e2e(["steps", "--inputs", inputs, "--ranks", "2",
                             "--layouts", "2x1,1x2", "--out",
                             os.path.join(d, "mesh_steps.npz")])
-    if "STEPS OK" not in stdout:
+    sorts = [int(v) for v in re.findall(r"anchor sort launches (\d+)", stdout)]
+    if "STEPS OK" not in stdout or len(sorts) != 2:
         raise AssertionError("the grid steps did not pass")
-    log(f"grid steps over 2 ranks: {wall:.2f} s")
+    log(f"grid steps over 2 ranks: every step equal to one process's; anchor "
+        f"sort launches per rank {sorts}; {wall:.2f} s")
+    if not all(sorts):
+        raise AssertionError("a rank's mapping steps did not launch the "
+                             "anchor sort kernel")
     out = os.path.join(d, "e2e_merged.sam")
     stdout, wall = _e2e(["--reads", r_fa, "--genome", g_fa, "--ranks", "2",
                             "--pad", str(MESH_PAD), "--threads", str(threads),
@@ -948,8 +1085,8 @@ def check_ranks(d, g_fa, r_fa, idx, n_free, threads):
         raise AssertionError("the ranks did not seed the corpus on the card")
     with open(out, "rb") as fh:
         digest = hashlib.sha256(fh.read()).hexdigest()
-    return {"fast_launches": launches, "ranks": ranks, "wall_s": wall,
-            "sha256": digest}
+    return {"fast_launches": launches, "sort_launches": sum(sorts),
+            "ranks": ranks, "wall_s": wall, "sha256": digest}
 
 
 def align_regions(genomes, read, cords_str, cords_end, band):
@@ -1002,7 +1139,7 @@ def check_banded(g_fa, r_fa, threads):
     the regions that -a 1 would align for the first BANDED_READS corpus
     reads (the Python engine's cords, mapped on the host), at each W of
     BANDED_WS; each launch against the plain version on the card, and the
-    scores of the first ALN_READS reads' regions against the host
+    scores of the first ALN_ORACLE_READS reads' regions against the host
     traceback's. Returns (results, launches of the entry point)."""
     import torch
 
@@ -1021,12 +1158,12 @@ def check_banded(g_fa, r_fa, threads):
     mapped = m.py_map_reads(reads, block.ids[:n], [None] * n, [None] * n,
                             Mapper.static_chunk_tids(n, threads))
     per_read = [align_regions(m.genomes, r, cs, ce, ALN_BAND)
-                for r, (cs, ce, _) in zip(reads, mapped)]
+                for r, (cs, ce, *_) in zip(reads, mapped)]
     pairs = [p for rr in per_read for p in rr]
-    n_aln = sum(map(len, per_read[:ALN_READS]))
+    n_aln = sum(map(len, per_read[:ALN_ORACLE_READS]))
     qry, ref = [q for q, _ in pairs], [r for _, r in pairs]
     log(f"banded alignment regions: {len(pairs)} of the first {n} reads "
-        f"({n_aln} of the first {ALN_READS}), query {min(map(len, qry))}-"
+        f"({n_aln} of the first {ALN_ORACLE_READS}), query {min(map(len, qry))}-"
         f"{max(map(len, qry))} b, reference {min(map(len, ref))}-"
         f"{max(map(len, ref))} b; mapped and cut on the host in "
         f"{time.time() - t0:.2f} s")
@@ -1064,7 +1201,7 @@ def check_banded(g_fa, r_fa, threads):
     host = np.array([banded_align_cigar_fast(q, r, W=ALN_BAND)[0]
                      for q, r in pairs[:n_aln]])
     n_diff = int((host != scores[ALN_BAND][:n_aln]).sum())
-    log(f"banded scores of the first {ALN_READS} reads' {n_aln} regions at "
+    log(f"banded scores of the first {ALN_ORACLE_READS} reads' {n_aln} regions at "
         f"W = {ALN_BAND}: {n_aln - n_diff} equal to the host traceback's "
         f"(banded_align_cigar_fast, {time.time() - t0:.2f} s)")
     if n_diff or not n_aln:
@@ -1260,16 +1397,21 @@ def subset_reads(d, r_fa, n):
     return fa
 
 
-def run_filter(d, g_fa, r_fa, device, threads, extra=(), tag="", engine=None):
-    """One CLI run with LINEAR_TPU_ENGINE=engine (default native);
-    returns (sam sha256, stats dict)."""
+OT_FILES = ((1, ".apf"), (2, ".sam"), (4, ".bam"), (8, "_pbsv.bam"))
+
+
+def run_filter(d, g_fa, r_fa, device, threads, extra=(), tag="", engine=None,
+               ot: int = 2):
+    """One CLI run with LINEAR_TPU_ENGINE=engine (default native) and
+    -ot `ot`; returns (sam sha256, stats dict). stats["files"] holds the
+    sha256 of every output file that -ot names."""
     prefix = os.path.join(d, f"out{tag}_{device}")
     env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
     env["LINEAR_TPU_ENGINE"] = engine or "native"
     t0 = time.time()
     res = subprocess.run(
         [sys.executable, "-m", "linear_tpu_torch", "filter", r_fa, g_fa,
-         "-t", str(threads), "-o", prefix, "-ot", "2", "--device", device,
+         "-t", str(threads), "-o", prefix, "-ot", str(ot), "--device", device,
          *extra], capture_output=True, text=True, env=env, cwd=ROOT)
     wall = time.time() - t0
     if res.returncode != 0:
@@ -1313,9 +1455,15 @@ def run_filter(d, g_fa, r_fa, device, threads, extra=(), tag="", engine=None):
         stats.update(zip(("chained", "chain_seeded", "chain_launches",
                           "chain_few", "chain_many", "chain_overflow"),
                          map(int, m.groups())))
-    with open(prefix + ".sam", "rb") as fh:
-        digest = hashlib.sha256(fh.read()).hexdigest()
-    return digest, stats
+    m = re.search(r"--Device \(cuda\): (.*) runs no device work", res.stderr)
+    if m:
+        stats["no_device_work"] = m.group(1)
+    stats["files"] = {}
+    for bit, ext in OT_FILES:
+        if ot & bit:
+            with open(prefix + ext, "rb") as fh:
+                stats["files"][ext] = hashlib.sha256(fh.read()).hexdigest()
+    return stats["files"][".sam"], stats
 
 
 def check_seeding_run(st) -> None:
@@ -1376,6 +1524,67 @@ def python_engine_runs(d, g_fa, r_fa, threads):
             f" chained on the card {st['chained']} of {st['chain_seeded']} "
             f"seeded reads in {st['chain_launches']} launches")
         out[name] = st
+    return out
+
+
+def other_configurations(d, g_fa, r_fa, threads, sam_b1: str) -> dict:
+    """Phase 11: the configurations beside the default one, each --device
+    cuda against --device host, every output file byte-identical. sam_b1 is
+    the sha256 of phase 8's -b 1 SAM, which the run from a loaded index
+    must reproduce. Returns each cuda run's stats by name."""
+    few = subset_reads(d, r_fa, OTHER_READS)
+    out = {}
+    for name, fa, n, extra, ot in (
+            ("ot15", r_fa, N_READS, (), 15),
+            ("i2", r_fa, N_READS, ("-i", "2"), 2),
+            ("i3", few, OTHER_READS, ("-i", "3"), 2),
+            ("f0", few, OTHER_READS, ("-f", "0"), 2),
+            ("f1", few, OTHER_READS, ("-f", "1"), 2)):
+        # the cuda and host runs of a configuration without device work are
+        # the same host code: they run side by side, and their times say
+        # nothing of the card
+        with ThreadPoolExecutor(1 if name == "ot15" else 2) as pool:
+            runs = dict(zip(("cuda", "host"), pool.map(
+                lambda dev: run_filter(d, g_fa, fa, dev, threads, extra, name,
+                                       ot=ot), ("cuda", "host"))))
+        for dev, (_, st) in runs.items():
+            log(f"filter {name} ({' '.join(extra) or '-b 1'} -ot {ot}, {n} "
+                f"reads) --device {dev} -t {threads}: {json.dumps(st)}; "
+                f"{n / st['time_in_sum_s']:.2f} reads/s end to end")
+        st = runs["cuda"][1]
+        if st["files"] != runs["host"][1]["files"]:
+            raise AssertionError(f"{name}: a file of --device cuda differs "
+                                 "from host")
+        if name == "ot15":
+            check_seeding_run(st)
+            if not st["launches"] or len(st["files"]) != 4:
+                raise AssertionError("-ot 15 --device cuda did not seed on "
+                                     "the card, or wrote fewer than 4 files")
+            if st["files"][".sam"] != sam_b1:
+                raise AssertionError("the -ot 15 SAM differs from the -ot 2 "
+                                     "SAM")
+        elif st.get("no_device_work") != " ".join(extra) or "launches" in st:
+            raise AssertionError(f"{name}: --device cuda must say that it "
+                                 "does no device work")
+        log(f"{name}: {', '.join(st['files'])} of --device cuda == host "
+            f"(sha256 {' '.join(v[:16] for v in st['files'].values())})")
+        out[name] = st
+    # index files: save on the host, load on the card
+    path = os.path.join(d, "smoke_index")
+    _, st_save = run_filter(d, g_fa, r_fa, "host", threads,
+                            ("--save-index", path), "idxsave")
+    sam, st_load = run_filter(d, g_fa, r_fa, "cuda", threads,
+                              ("--load-index", path), "idxload")
+    check_seeding_run(st_load)
+    log(f"filter --save-index (host) {st_save['time_in_sum_s']} s, "
+        f"{os.path.getsize(path + '.npz')} B; --load-index --device cuda "
+        f"{json.dumps(st_load)}")
+    if not (sam == st_save["files"][".sam"] == sam_b1):
+        raise AssertionError("the SAM of a run with a saved or loaded index "
+                             "differs from the run that builds it")
+    log(f"SAM --load-index --device cuda == --save-index host == -b 1 "
+        f"(sha256 {sam})")
+    out["idxload"] = st_load
     return out
 
 
@@ -1514,6 +1723,11 @@ def main() -> int:
         raise AssertionError("an entry point of phase 7 or 10 did not launch "
                              "its kernel")
 
+    # phase 11: BAM output, -i 2/3, -f 0/1 and the index files
+    t11 = time.time()
+    other_configurations(d, g_fa, r_fa, threads, sam_cuda)
+    log(f"phase 11: {time.time() - t11:.2f} s")
+
     def entry(name, source, replaces, launches, checks, main, **extra):
         return {"name": name, "route": "cuda",
                 "source": f"linear_tpu_torch/ops/csrc/{source}",
@@ -1546,6 +1760,10 @@ def main() -> int:
               "linear_tpu/ops/seeding.py:420", seeding["compact_launches"],
               seeding["compact"], seeding["compact"][-1],
               shapes=seeding["compact"]),
+        entry("sort_anchors", "sort_anchors.cu",
+              "linear_tpu/parallel/mesh.py:44", mesh["sort_launches"],
+              seeding["sort"], seeding["sort"][0], shapes=seeding["sort"],
+              path="mesh mapping step"),
         entry("chain_dp_full", "chain_dp.cu",
               "linear_tpu/ops/chain_dp.py:86", full_launches, full_checks,
               full_checks[1], shapes=full_checks, path=ENTRY_ONLY),

@@ -14,7 +14,9 @@ engine does not implement) the device chains the seeded reads instead of
 extending them. cuda never falls back: without a card the run exits 1. A
 device run first joins the torch.distributed process group that the
 environment describes (parallel.dist; a no-op without WORLD_SIZE > 1).
-Options the port does not run yet exit 1 and name their ROADMAP.md item.
+The device works on the DIndex and the 2_48 features only: with -i 2/3 or
+-f 0/1 a device run maps on the host engines, as linear_tpu's does, and
+says so on stderr.
 """
 from __future__ import annotations
 
@@ -36,7 +38,8 @@ def build_parser() -> argparse.ArgumentParser:
     f.add_argument("files", nargs="+", help="read files [x] genome files")
     f.add_argument("-o", "--output", default="", help="output prefix")
     f.add_argument("-ot", "--output_type", type=int, default=2,
-                   help="1 apf, 2 sam (default); sum to combine")
+                   help="1 apf, 2 sam (default), 4 bam, 8 pbsv bam; sum to "
+                        "combine")
     f.add_argument("-t", "--thread", type=int, default=16)
     f.add_argument("-g", "--gap_len", type=int, default=1,
                    help="min gap len; 0 disables gap mapping; 1 -> default 50")
@@ -52,8 +55,11 @@ def build_parser() -> argparse.ArgumentParser:
     f.add_argument("-c", "--apx_c_flag", type=int, default=1)
     f.add_argument("-f", "--feature_type", type=int, default=2)
     f.add_argument("-r", "--reform_ccs_cigar_flag", type=int, default=0)
-    f.add_argument("--save-index", default="")
-    f.add_argument("--load-index", default="")
+    f.add_argument("--save-index", default="",
+                   help="serialize the built index to PATH(.npz) and continue")
+    f.add_argument("--load-index", default="",
+                   help="load a previously saved index instead of building "
+                        "(must match -i/-t and the genome files)")
     f.add_argument("--device", choices=["host", "cpu", "cuda"], default="cuda",
                    help="who runs the device kernels (seeding, index build, "
                         "-b 0 extension, chain DP of the Python engine): "
@@ -71,7 +77,9 @@ def split_files(files: List[str]) -> tuple:
 
 
 def run_filter(args) -> int:
-    from .map.mapper import Mapper, MapperConfig, unported
+    from .map.mapper import Mapper, MapperConfig
+    from .out import bam as BAM
+    from .out import bamlink as BL
     from .utils import seqio
 
     read_paths, genome_paths = split_files(args.files)
@@ -101,13 +109,6 @@ def run_filter(args) -> int:
         feature_t=args.feature_type,
         aln_flag=args.align,
     )
-    why = unported(cfg, args.device)
-    if args.save_index or args.load_index:
-        why = ("--save-index/--load-index are not ported yet (ROADMAP.md, "
-               "port item 'index .npz serialisation')")
-    if why:
-        print(f"E[port]: {why}", file=sys.stderr)
-        return 1
     if args.device in ("cpu", "cuda"):
         # before anything touches CUDA or forks (linear_tpu/cli.py:99-104)
         from .parallel.dist import init_distributed
@@ -121,7 +122,26 @@ def run_filter(args) -> int:
         return 1
     print(f"--Read genomes  {len(mapper.genomes)} sequences "
           f"{sum(mapper.genome_lens) >> 20} mbases", file=sys.stderr)
-    mapper.prepare()
+    if args.load_index:
+        from .index.serial import load_index
+
+        mapper.create_features()
+        try:
+            mapper.index = load_index(args.load_index,
+                                      expect_index_type=args.index_type,
+                                      genome_lens=mapper.genome_lens)
+        except ValueError as e:
+            print(str(e), file=sys.stderr)
+            return 1
+        print(f"--Index loaded  {args.load_index}", file=sys.stderr)
+    else:
+        mapper.prepare()
+    if args.save_index:
+        from .index.serial import save_index
+
+        save_index(args.save_index, mapper.index,
+                   genome_lens=mapper.genome_lens)
+        print(f"--Index saved   {args.save_index}", file=sys.stderr)
     print(f"--Index created Elapsed time[s] {time.time() - t0:.2f}", file=sys.stderr)
 
     # -b 1 (default): pipelined fetch/compute/print with a worker pool —
@@ -133,7 +153,23 @@ def run_filter(args) -> int:
         pipeline = PipelineMapper(
             mapper, n_workers=max(1, min(args.thread, (os.cpu_count() or 1) + 1)),
             csize_workers=max(1, args.thread))
-    seeding = args.device in ("cpu", "cuda")
+    seeding = mapper.device_work()
+    if args.device != "host" and not seeding:
+        # as linear_tpu --device tpu: these configurations map on the host
+        # engines. The workers have forked, so CUDA may be asked now
+        if args.device == "cuda":
+            import torch
+
+            if not torch.cuda.is_available():
+                print("E[dev]: --device cuda: no CUDA device is available",
+                      file=sys.stderr)
+                if pipeline is not None:
+                    pipeline.close()
+                return 1
+        why = " ".join(f"{flag} {v}" for flag, v, d in (
+            ("-i", cfg.index_type, 1), ("-f", cfg.feature_t, 2)) if v != d)
+        print(f"--Device ({args.device}): {why} runs no device work; the "
+              f"host engines map the reads", file=sys.stderr)
     if seeding:
         # the workers have forked: torch may be imported and the device
         # initialised now
@@ -171,13 +207,33 @@ def run_filter(args) -> int:
 
     f_apf = args.output_type & 1
     f_sam = args.output_type & 2
+    f_bam = args.output_type & 4
+    f_pbsv = args.output_type & 8
     n_done = 0
+
+    def write_bams(prefix, bam_lines):
+        """<prefix>.bam and <prefix>_pbsv.bam (the same records under the
+        pbsv header) as -ot asks; returns the result file names."""
+        if f_bam:
+            BAM.write_bam(prefix + ".bam", mapper.sam_header(),
+                          mapper.genome_ids, mapper.genome_lens, bam_lines)
+        if f_pbsv:
+            hdr = BL.sam_header_pbsv(mapper.genome_ids, mapper.genome_lens,
+                                     cfg.read_group, cfg.sample_name,
+                                     cfg.cmd_line)
+            BAM.write_bam(prefix + "_pbsv.bam", hdr, mapper.genome_ids,
+                          mapper.genome_lens, bam_lines)
+        return [prefix + ext for ext, fl in
+                ((".apf", f_apf), (".sam", f_sam), (".bam", f_bam),
+                 ("_pbsv.bam", f_pbsv)) if fl]
+
     # with -o and multiple read files the reference routes EVERY input into
     # the one shared output set (append across files, single header,
     # src/mapper.cpp:601-613, :981-1003); without -o each input file gets
     # its own <name>.sam/.apf
     shared = bool(args.output)
     of_sam_shared = of_apf_shared = None
+    bam_shared: list = []
     if shared:
         of_sam_shared = open(args.output + ".sam", "w") if f_sam else None
         of_apf_shared = open(args.output + ".apf", "w") if f_apf else None
@@ -186,16 +242,18 @@ def run_filter(args) -> int:
     for rpath in read_paths:
         prefix = args.output or rpath.split("/")[-1].split(".")[0]
         if shared:
-            of_sam, of_apf = of_sam_shared, of_apf_shared
+            of_sam, of_apf, bam_lines = of_sam_shared, of_apf_shared, bam_shared
         else:
             of_sam = open(prefix + ".sam", "w") if f_sam else None
             of_apf = open(prefix + ".apf", "w") if f_apf else None
+            bam_lines = []
             if of_sam:
                 of_sam.write(mapper.sam_header())
         t1 = time.time()
 
-        def emit(block, cs, sam, n):
+        def emit(block, cs, sam, bl, n):
             nonlocal n_done
+            bam_lines.extend(bl)
             if of_sam:
                 of_sam.write(sam)
             if of_apf:
@@ -206,30 +264,31 @@ def run_filter(args) -> int:
                   f"speed:{n_done / max(el, 1e-9):.2f}[reads/s]", file=sys.stderr)
 
         if pipeline is not None:
-            for br in pipeline.run(rpath, collect_cords=bool(f_apf)):
-                emit(br.block, br.cords_str, br.sam, br.n)
+            for br in pipeline.run(rpath, collect_bam=bool(f_bam or f_pbsv),
+                                   collect_cords=bool(f_apf)):
+                emit(br.block, br.cords_str, br.sam, br.bam_lines, br.n)
             runs.append(pipeline.counters)
         else:
             counters = PipeCounters() if seeding else None
             for block in seqio.read_blocks(rpath):
-                cs, _, sam = mapper.map_block(block, counters=counters)
-                emit(block, cs, sam, len(block))
+                cs, _, sam, *bl = mapper.map_block(
+                    block, counters=counters,
+                    collect_bam=bool(f_bam or f_pbsv))
+                emit(block, cs, sam, bl[0] if bl else [], len(block))
             if seeding:
                 runs.append(counters)
         if not shared:
             for of in (of_sam, of_apf):
                 if of:
                     of.close()
-            outs = [prefix + ext for ext, fl in
-                    ((".apf", f_apf), (".sam", f_sam)) if fl]
-            print("Result files: " + " ".join(outs), file=sys.stderr)
+            print("Result files: " + " ".join(write_bams(prefix, bam_lines)),
+                  file=sys.stderr)
     if shared:
         for of in (of_sam_shared, of_apf_shared):
             if of:
                 of.close()
-        outs = [args.output + ext for ext, fl in
-                ((".apf", f_apf), (".sam", f_sam)) if fl]
-        print("Result files: " + " ".join(outs), file=sys.stderr)
+        print("Result files: " + " ".join(write_bams(args.output, bam_shared)),
+              file=sys.stderr)
     if pipeline is not None:
         pipeline.close()
     if seeding:

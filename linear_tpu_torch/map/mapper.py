@@ -1,19 +1,21 @@
 """Mapping orchestration: genomes + reads -> cords -> SAM/APF.
 
-Counterpart of linear_tpu.map.mapper for the slice the port runs: DIndex
-(-i 1), 2_48 features (-f 2), device seeding through ops.seeding, and one of
-two per-read engines:
+Counterpart of linear_tpu.map.mapper: the DIndex (-i 1), HIndex (-i 2) or
+SIndex (-i 3), the 2_48 (-f 2), 1_16 (-f 0) or 1_32 (-f 1) features, device
+seeding through ops.seeding, and one of two per-read engines:
   native  lt_engine does the per-read work (chaining, the apx tail, gaps,
           SAM); in the serial -b 0 loop on a device the dense-window
           extension (_filterHits + path_dst_2) runs on the device
           (ops.extend_dev) between the engine's first pass and its finish;
   Python  map.pmpfinder / chaining / gap and out.bamlink (or map.align for
-          -a 1), selected by LINEAR_TPU_ENGINE=py or by -a 1, which the
-          native engine does not implement; on a device the chain DP of
-          each seeded read runs there (ops.chain_dp) and the engine starts
-          from its tables.
+          -a 1), selected by LINEAR_TPU_ENGINE=py or by what the native
+          engine does not implement (-a 1, -i 3, -f 0/1); on a device the
+          chain DP of each seeded read runs there (ops.chain_dp) and the
+          engine starts from its tables.
 On a genome without N the device builds its own DIndex tables
-(ops.devbuild); otherwise the host build is uploaded.
+(ops.devbuild); otherwise the host build is uploaded. The device works on
+the DIndex and the 2_48 features only (Mapper.device_work): with -i 2/3 or
+-f 0/1 a device run maps on the host engines, as linear_tpu's does.
 
 Devices (`device`, default cuda):
   host  the engine does all of it;
@@ -34,9 +36,10 @@ import numpy as np
 
 from ..index import dindex as DI
 from ..ops import features as F
+from ..out import bam as BAM
 from ..out import bamlink as BL
 from ..out.apf import print_cords_apf
-from ..utils import seqio
+from ..utils import dbg, seqio
 from ..utils.cordscalar import anchor_x
 from . import nengine as NE
 from . import pmpfinder as PMP
@@ -86,22 +89,6 @@ class MapperConfig:
         0.7 survives only for preset 0; presets 1/2 zero it
         (src/mapper.cpp:174-197)."""
         return 0.7 if self.preset == 0 else 0.0
-
-
-def unported(cfg: MapperConfig, device: str) -> str:
-    """Why the port cannot run `cfg` on `device` yet ('' if it can),
-    naming the ROADMAP.md item that will add it."""
-    if cfg.index_type != 1:
-        return (f"-i {cfg.index_type}: only the DIndex (-i 1) is ported "
-                "(ROADMAP.md, port item 'HIndex and SIndex')")
-    if cfg.feature_t != 2:
-        return (f"-f {cfg.feature_t}: only the 2_48 features (-f 2) are "
-                "ported (ROADMAP.md, port item 'feature types -f 0/1')")
-    if cfg.output_type & 12:
-        return (f"-ot {cfg.output_type}: BAM and pbsv-BAM output (bits 4 "
-                "and 8) are not ported yet (ROADMAP.md, port item 'BAM and "
-                "pbsv output')")
-    return ""
 
 
 def chain_prepass(seeds) -> List[int]:
@@ -175,17 +162,14 @@ class Mapper:
         self.cfg = cfg or MapperConfig()
         if device not in DEVICES:
             raise ValueError(f"device {device!r}: use one of {DEVICES}")
-        why = unported(self.cfg, device)
-        if why:
-            raise ValueError(why)
         self.device = device
         gset = seqio.load_genomes(genome_paths)
         # genome ids are truncated at the first space (src/base.cpp:188-195)
         self.genome_ids = [g.split(" ")[0] for g in gset.ids]
         self.genomes = gset.seqs
         self.genome_lens = [len(s) for s in self.genomes]
-        self.f2: List[PMP.Feats] = []  # per-genome 2_48 feature scripts
-        self.index: Optional[DI.DIndex] = None
+        self.f2: List[PMP.Feats] = []  # per-genome feature scripts
+        self.index = None  # DIndex, HIndex or SIndex (cfg.index_type)
         self._dev_index = None
         self._dev_gfeats = None
         # how the device index was made ("built" on the device, or
@@ -200,16 +184,58 @@ class Mapper:
         # (PMPParms.did_toggle)
         self._gap_parms: dict = {}
         self._pmp_toggled: dict = {}
+        # per-tid read-feature buffers of -f 0/1 (PMP.FeatBuf: a shorter
+        # read leaves the previous read's tail rows in place)
+        self._f1_bufs: dict = {}
+
+    def device_work(self) -> bool:
+        """Whether the device does any of the mapping: only with the DIndex
+        and the 2_48 features, as in linear_tpu (map/mapper.py:660-661)."""
+        return (self.device != "host" and self.cfg.index_type == 1
+                and self.cfg.feature_t == 2)
 
     def create_features(self) -> None:
-        """The genomes' 2_48 feature scripts from the native builder (bit-
-        equal to ops.features.create_features_genome), wrapped for the
-        Python engine; the native engine reads their arrays."""
-        self.f2 = [PMP.Feats(NE.build_features_native(s, self.cfg.threads))
-                   for s in self.genomes]
+        """The genomes' feature scripts, wrapped for the Python engine; the
+        native engine reads their arrays. 2_48 (-f 2) from the native
+        build (bit-equal to ops.features.create_features_genome); 1_16
+        (-f 0) and 1_32 (-f 1) from ops.features."""
+        PMP.set_feature_type(self.cfg.feature_t)
+        if self.cfg.feature_t == 0:
+            arrs = [F.create_features_1_16_parallel(s, self.cfg.threads)
+                    for s in self.genomes]
+        elif self.cfg.feature_t == 1:
+            arrs = [F.create_features_1_32_parallel(s, self.cfg.threads)
+                    for s in self.genomes]
+        else:
+            arrs = [NE.build_features_native(s, self.cfg.threads)
+                    for s in self.genomes]
+        if self.cfg.feature_t != 2 and dbg.enabled():
+            for a in arrs:
+                dbg.dbg_s("GFEA", a)
+        self.f2 = [PMP.Feats(a) for a in arrs]
 
     def create_index(self) -> None:
-        self.index = DI.build_dindex(self.genomes, self.cfg.threads)
+        """The index of cfg.index_type: the DIndex (native build), the
+        HIndex (native build with the engine on, else index.hindex's) or
+        the SIndex."""
+        if self.cfg.index_type == 3:
+            from ..index import sindex as SI
+
+            self.index = SI.build_sindex(self.genomes,
+                                         threads_emul=self.cfg.threads)
+        elif self.cfg.index_type == 2:
+            from ..index import hindex as HI
+
+            if NE.enabled():
+                self.index = NE.build_hindex_native(
+                    self.genomes, HI.DEFAULT_SPAN, HI.DEFAULT_STEP,
+                    HI.DEFAULT_BLOCKLIMIT, HI.DEFAULT_ALPHA,
+                    self.cfg.threads)
+            else:
+                self.index = HI.build_hindex(self.genomes,
+                                             threads_emul=self.cfg.threads)
+        else:
+            self.index = DI.build_dindex(self.genomes, self.cfg.threads)
 
     def prepare(self) -> None:
         """Host-only set-up (features + index); touches no device, so a
@@ -230,8 +256,10 @@ class Mapper:
         initialised. Raises when the device or nvcc is missing, and when
         the build on the device fails."""
         if self._dev_index is None:
-            if self.device not in ("cpu", "cuda"):
-                raise ValueError(f"device {self.device!r} does not seed")
+            if not self.device_work():
+                raise ValueError(f"device {self.device!r} with -i "
+                                 f"{self.cfg.index_type} -f "
+                                 f"{self.cfg.feature_t} does not seed")
             import torch
 
             from ..ops import devbuild as DB
@@ -437,9 +465,11 @@ class Mapper:
 
     def use_native(self) -> bool:
         """Whether the native engine maps the reads: not with
-        LINEAR_TPU_ENGINE=py, nor with -a 1, which it does not implement
-        (linear_tpu/map/mapper.py:507-513)."""
-        return NE.enabled() and not self.cfg.aln_flag
+        LINEAR_TPU_ENGINE=py, nor with what it does not implement: -a 1,
+        the SIndex, the 1_16 / 1_32 features (linear_tpu/map/mapper.py:
+        507-513)."""
+        return (NE.enabled() and not self.cfg.aln_flag
+                and self.cfg.index_type in (1, 2) and self.cfg.feature_t == 2)
 
     def gap_parms(self, tid: int = 0):
         """The Python engine's persistent GapParms of emulated compute
@@ -463,6 +493,7 @@ class Mapper:
         """Start fresh emulated compute threads (per-task GapParms)."""
         self._gap_parms = {}
         self._pmp_toggled = {}
+        self._f1_bufs = {}
         if self._nengine is not None:
             self._nengine.reset()
 
@@ -478,8 +509,17 @@ class Mapper:
         if len(read) <= THD_MIN_READ_LEN:
             return [], [], None, None
         rc = seqio.revcomp(read)
-        f1 = [PMP.Feats(F.create_features_serial(read)),
-              PMP.Feats(F.create_features_serial(rc))]
+        if self.cfg.feature_t != 2:
+            st = self._f1_bufs.setdefault(tid, [PMP.FeatBuf(), PMP.FeatBuf()])
+            vf, nf = F.feats1_parts(read, self.cfg.feature_t)
+            vr, nr = F.feats1_parts(rc, self.cfg.feature_t)
+            f1 = [st[0].update(vf, nf), st[1].update(vr, nr)]
+            if dbg.enabled():
+                dbg.dbg_s("RFEA", f1[0].arr[: f1[0].n_len])
+                dbg.dbg_s("RFEB", f1[1].arr[: f1[1].n_len])
+        else:
+            f1 = [PMP.Feats(F.create_features_serial(read)),
+                  PMP.Feats(F.create_features_serial(rc))]
         pm = PMP.PMPParms(seed_anchors=seed_anchors, chain_pre=chain_pre,
                           cah_stop_ratio=self.cfg.cah_stop_ratio)
         if self._pmp_toggled.get(tid):
@@ -508,11 +548,12 @@ class Mapper:
         PMP._dbg("REFC", cords_str)
 
     def read_output(self, read: np.ndarray, rid: str, cords_str: List[int],
-                    cords_end: List[int]) -> str:
-        """The Python engine's SAM text of one read (the print side of
+                    cords_end: List[int], collect_bam: bool = False):
+        """The output of one read from its cords (the print side of
         p_calRecords, src/mapper.cpp:452-473): cords -> virtual-alignment
         records, or with -a 1 the base-level banded alignment of the cords
-        windows (map.align, real =/X/I/D CIGARs)."""
+        windows (map.align, real =/X/I/D CIGARs). Returns (SAM text, BAM
+        lines of out.bam, empty unless collect_bam)."""
         if self.cfg.aln_flag:
             from . import align as AL
 
@@ -527,15 +568,17 @@ class Mapper:
         BL.fill_bam_records(records, self.genome_ids, rid)
         if self.cfg.sequence_sam and records:
             BL.synth_seq(records, self.genomes, read, seqio.revcomp(read))
-        return "".join(line + "\n" for line in BL.sam_lines(records))
+        sam = "".join(line + "\n" for line in BL.sam_lines(records))
+        return sam, (BAM.records_to_bam_lines(records) if collect_bam else [])
 
     def py_map_reads(self, reads: List[np.ndarray], rids: List[str],
-                     seeds: List, chain_pre: List, tids: List[int]):
+                     seeds: List, chain_pre: List, tids: List[int],
+                     collect_bam: bool = False):
         """The Python engine over consecutive reads: the apx phase of all of
         them in lockstep (batched window sweeps; in read order with -c 0,
         whose alg-1 state leaks across reads), then the gap phase and the
-        SAM of each in read order. Returns (cords_str list, cords_end list,
-        SAM text) per read."""
+        output of each in read order. Returns (cords_str list, cords_end
+        list, SAM text, BAM lines) per read."""
         gens = [self.map_read_gen(r, seed_anchors=s, chain_pre=c, tid=t)
                 for r, s, c, t in zip(reads, seeds, chain_pre, tids)]
         if self.cfg.apx_chain_flag:
@@ -546,7 +589,8 @@ class Mapper:
         for read, rid, tid, (cs, ce, rc, f1) in zip(reads, rids, tids,
                                                      mapped):
             self.gap_phase(read, rc, cs, ce, f1, tid=tid)
-            out.append((cs, ce, self.read_output(read, rid, cs, ce)))
+            out.append((cs, ce, *self.read_output(read, rid, cs, ce,
+                                                  collect_bam)))
         return out
 
     def native_engine(self) -> NE.NativeEngine:
@@ -569,13 +613,23 @@ class Mapper:
                 cah_stop_ratio=self.cfg.cah_stop_ratio)
         return self._nengine
 
-    def native_map_read(self, read, rid: str, seeds=None, tid: int = 0):
+    def native_map_read(self, read, rid: str, seeds=None, tid: int = 0,
+                        collect_bam: bool = False):
         """One read through the native engine: returns (cords_str list,
-        cords_end list, sam text)."""
+        cords_end list, sam text, BAM lines); the BAM lines come from the
+        engine's cords through read_output."""
         s = None if seeds is None else np.asarray(seeds, dtype=np.uint64)
         cs, ce, sam = self.native_engine().map_read(read, rid, seeds=s,
                                                     tid=tid)
-        return [int(c) for c in cs], [int(c) for c in ce], sam
+        return self._with_bam(read, rid, cs, ce, sam, collect_bam)
+
+    def _with_bam(self, read, rid: str, cs, ce, sam: str, collect_bam: bool):
+        """The engine's (cords_str, cords_end, sam) of a read as int lists,
+        with the read's BAM lines when asked for."""
+        cs, ce = [int(c) for c in cs], [int(c) for c in ce]
+        bl = (self.read_output(read, rid, cs, ce, collect_bam=True)[1]
+              if collect_bam else [])
+        return cs, ce, sam, bl
 
     @staticmethod
     def static_chunk_tids(n: int, threads: int) -> List[int]:
@@ -589,11 +643,13 @@ class Mapper:
             tids.extend([t] * (size2 + 1 if t < r else size2))
         return tids
 
-    def map_block(self, reads: seqio.SeqSet, counters=None):
+    def map_block(self, reads: seqio.SeqSet, counters=None,
+                  collect_bam: bool = False):
         """Map a block of reads in this process (the serial -b 0 block
-        loop); returns (all_cords_str, all_cords_end, sam_text). On a
-        device (JAX's map_block, linear_tpu/map/mapper.py:649-734) the
-        device seeds the block. Then, with the Python engine, the device
+        loop); returns (all_cords_str, all_cords_end, sam_text), and with
+        collect_bam the block's BAM lines as a fourth. Where the device
+        works (device_work; JAX's map_block, linear_tpu/map/mapper.py:
+        649-734) it seeds the block. Then, with the Python engine, the device
         chains the seeded reads and the engine starts from those tables.
         With the native engine in chain mode (-c 1), the native first pass
         gives each eligible read its pre-filter hits, the device extends
@@ -603,12 +659,14 @@ class Mapper:
         seeds. `counters` (a pipeline.PipeCounters) gets the seeding
         counts."""
         n = len(reads.seqs)
+        self._f1_bufs = {}
         if self.cfg.bal_flag == 0:
             tids = self.static_chunk_tids(n, self.cfg.threads)
         else:
             tids = [0] * n
         seeds: List = [None] * n
-        if self.device != "host":
+        on_device = self.device_work()
+        if on_device:
             for m_out, idxs, anchors in self._device_seed_stream2(
                     [(0, reads.seqs)]):
                 for i, a in zip(idxs, anchors):
@@ -621,19 +679,32 @@ class Mapper:
             counters.shipped_seeded += sum(s is not None for s in seeds)
         if not self.use_native():
             chain_pre = (self._device_chain_block(seeds)
-                         if self.device != "host" else [None] * n)
+                         if on_device else [None] * n)
             mapped = self.py_map_reads(reads.seqs, reads.ids, seeds,
-                                       chain_pre, tids)
-            return ([m[0] for m in mapped], [m[1] for m in mapped],
-                    "".join(m[2] for m in mapped))
+                                       chain_pre, tids, collect_bam)
+        else:
+            mapped = self._native_map_block(reads, seeds, tids, on_device,
+                                            collect_bam)
+        out = ([m[0] for m in mapped], [m[1] for m in mapped],
+               "".join(m[2] for m in mapped))
+        if collect_bam:
+            return (*out, [ln for m in mapped for ln in m[3]])
+        return out
+
+    def _native_map_block(self, reads: seqio.SeqSet, seeds: List,
+                          tids: List[int], on_device: bool,
+                          collect_bam: bool) -> List:
+        """map_block's native-engine branch: per read (cords_str,
+        cords_end, sam, BAM lines)."""
+        n = len(reads.seqs)
         dev_cords: List = [None] * n
-        if self.device != "host" and self.cfg.apx_chain_flag:
+        if on_device and self.cfg.apx_chain_flag:
             ne = self.native_engine()
             hits = [ne.apx_hits(r, s)
                     if THD_MIN_READ_LEN < len(r) <= MAX_SEED_READ_LEN
                     else None for r, s in zip(reads.seqs, seeds)]
             dev_cords = self._device_extend_block(reads, hits)
-        all_str, all_end, sam_parts = [], [], []
+        mapped = []
         for rid, read, tid, s, dc in zip(reads.ids, reads.seqs, tids, seeds,
                                          dev_cords):
             res = None
@@ -643,14 +714,10 @@ class Mapper:
                     self.ext_counters.host_reapx += 1
                 else:
                     self.ext_counters.extended += 1
-                    res = ([int(c) for c in res[0]], [int(c) for c in res[1]],
-                           res[2])
-            cs, ce, sam = res or self.native_map_read(read, rid, seeds=s,
-                                                      tid=tid)
-            all_str.append(cs)
-            all_end.append(ce)
-            sam_parts.append(sam)
-        return all_str, all_end, "".join(sam_parts)
+                    res = self._with_bam(read, rid, *res, collect_bam)
+            mapped.append(res or self.native_map_read(
+                read, rid, seeds=s, tid=tid, collect_bam=collect_bam))
+        return mapped
 
     def sam_header(self) -> str:
         return BL.sam_header(

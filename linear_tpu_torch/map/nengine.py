@@ -48,6 +48,25 @@ def engine_lib():
                 C.c_double,                     # cah_stop_ratio (preset)
                 C.POINTER(C.c_char_p),          # genome ids
             ]
+            lib.le_set_hindex.restype = None
+            lib.le_set_hindex.argtypes = [
+                C.c_void_p,
+                C.c_void_p, C.c_int64,          # ysa, n_ysa
+                C.c_void_p, C.c_void_p,         # xs_val1, xs_val2
+                C.c_int64, C.c_int64,           # xs_mask, empty_dir
+                C.c_int, C.c_int,               # span, weight
+            ]
+            lib.le_build_hindex.restype = C.c_void_p
+            lib.le_build_hindex.argtypes = [
+                C.POINTER(C.c_void_p), C.POINTER(C.c_int64), C.c_int64,
+                C.c_int, C.c_int64, C.c_int64, C.c_double, C.c_int64]
+            lib.le_hindex_sizes.restype = None
+            lib.le_hindex_sizes.argtypes = [C.c_void_p, C.POINTER(C.c_int64)]
+            lib.le_hindex_ptrs.restype = None
+            lib.le_hindex_ptrs.argtypes = [C.c_void_p, C.POINTER(C.c_void_p),
+                                           C.c_void_p]
+            lib.le_hindex_build_free.restype = None
+            lib.le_hindex_build_free.argtypes = [C.c_void_p]
             lib.le_reset.restype = None
             lib.le_reset.argtypes = [C.c_void_p]
             lib.le_destroy.restype = None
@@ -116,7 +135,8 @@ def engine_lib():
 def enabled() -> bool:
     """Whether the native engine maps reads: LINEAR_TPU_ENGINE=py (the
     variable linear_tpu.map.nengine reads) selects the Python engine. The
-    native genome feature and DIndex builders run either way."""
+    native genome feature and DIndex builds run either way; the native
+    HIndex build only with the engine on, as in linear_tpu."""
     return os.environ.get("LINEAR_TPU_ENGINE", "native") != "py"
 
 
@@ -153,6 +173,54 @@ def build_dindex_native(seqs: List[np.ndarray], span: int, weight: int,
     finally:
         lib.le_index_free(h)
     return dirp, hs, nz
+
+
+class _BuildHandle:
+    """Owns a native HIndex build's buffers and frees them when the last
+    array viewing them dies."""
+
+    def __init__(self, lib, h):
+        self._lib = lib
+        self._h = h
+
+    def __del__(self):
+        self._lib.le_hindex_build_free(self._h)
+
+
+def build_hindex_native(seqs: List[np.ndarray], span: int, step: int,
+                        blocklimit: int, alpha: float, threads: int):
+    """HIndex (-i 2) tables via the native build (le_hibuild.hpp): an
+    index.hindex.HIndex, bit-identical to index.hindex.build_hindex. Its
+    arrays are numpy views over the build's own buffers (no copy); each
+    array's base holds the handle that frees them, so an array stays valid
+    however long it is kept."""
+    from ..index.hindex import HIndex
+
+    lib = engine_lib()
+    pinned = [np.ascontiguousarray(s, dtype=np.uint8) for s in seqs]
+    n = len(pinned)
+    gptrs = (C.c_void_p * n)(*[g.ctypes.data for g in pinned])
+    glens = (C.c_int64 * n)(*[len(g) for g in pinned])
+    handle = _BuildHandle(lib, lib.le_build_hindex(
+        gptrs, glens, n, span, step, blocklimit, alpha, threads))
+    sizes = (C.c_int64 * 3)()
+    lib.le_hindex_sizes(handle._h, sizes)
+    ptrs = (C.c_void_p * 3)()
+    mask = np.zeros(1, dtype=np.uint64)
+    lib.le_hindex_ptrs(handle._h, ptrs, mask.ctypes.data)
+
+    def view(ptr, count, dtype):
+        if count == 0:
+            return np.zeros(0, dtype=dtype)
+        buf = (C.c_char * (count * 8)).from_address(ptr)
+        buf._keepalive = handle  # the array's base is a view of buf
+        return np.frombuffer(buf, dtype=dtype)
+
+    return HIndex(span=span, weight=span - 8,
+                  ysa=view(ptrs[0], sizes[0], np.uint64),
+                  xs_val1=view(ptrs[1], sizes[1], np.uint64),
+                  xs_val2=view(ptrs[2], sizes[1], np.int64),
+                  xs_mask=int(mask[0]), empty_dir=int(sizes[2]))
 
 
 def pack_superchunk_native(reads: list, pad_len: int, rows: int):
@@ -216,9 +284,17 @@ class NativeEngine:
         self._lib = lib
         self._genomes = [np.ascontiguousarray(g, dtype=np.uint8) for g in genomes]
         self._gfeats = [np.ascontiguousarray(f, dtype=np.int32) for f in gfeats]
-        self._dir = np.ascontiguousarray(index.dir, dtype=np.int32)
-        self._hs = np.ascontiguousarray(index.hs, dtype=np.uint64)
-        self._nz = np.ascontiguousarray(index.ensure_nz(), dtype=np.uint64)
+        self._hindex = index if hasattr(index, "ysa") else None
+        if self._hindex is not None:  # -i 2: the engine seeds via le_hindex
+            self._dir = np.zeros(2, dtype=np.int32)
+            self._hs = np.zeros(0, dtype=np.uint64)
+            nz_ptr = None
+        else:
+            self._dir = np.ascontiguousarray(index.dir, dtype=np.int32)
+            self._hs = np.ascontiguousarray(index.hs, dtype=np.uint64)
+            self._nz = np.ascontiguousarray(index.ensure_nz(),
+                                            dtype=np.uint64)
+            nz_ptr = self._nz.ctypes.data
         n = len(self._genomes)
         gptrs = (C.c_void_p * n)(*[g.ctypes.data for g in self._genomes])
         glens = (C.c_int64 * n)(*[len(g) for g in self._genomes])
@@ -227,10 +303,19 @@ class NativeEngine:
         gids = (C.c_char_p * n)(*[s.encode() for s in genome_ids])
         self._h = lib.le_create2(
             n, gptrs, glens, fptrs, frows,
-            self._dir.ctypes.data, self._hs.ctypes.data, self._nz.ctypes.data,
+            self._dir.ctypes.data, self._hs.ctypes.data, nz_ptr,
             index.span, index.weight,
             thd_DI, thd_X, gap_len_min, f_dup, f_chain,
             sequence_sam, reform_ccs, cah_stop_ratio, gids)
+        if self._hindex is not None:
+            hi = self._hindex
+            self._hi_ysa = np.ascontiguousarray(hi.ysa, dtype=np.uint64)
+            self._hi_v1 = np.ascontiguousarray(hi.xs_val1, dtype=np.uint64)
+            self._hi_v2 = np.ascontiguousarray(hi.xs_val2, dtype=np.int64)
+            lib.le_set_hindex(self._h, self._hi_ysa.ctypes.data,
+                              len(self._hi_ysa), self._hi_v1.ctypes.data,
+                              self._hi_v2.ctypes.data, hi.xs_mask,
+                              hi.empty_dir, hi.span, hi.weight)
 
     def __del__(self):
         h = getattr(self, "_h", None)

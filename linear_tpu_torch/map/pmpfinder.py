@@ -1020,15 +1020,24 @@ def mn_map_read_list(
     alg_type: int,
     pm: PMPParms,
 ) -> None:
-    """mnMapReadList (src/pmpfinder.cpp:2560): DIndex seeding (the port
-    runs -i 1 only; linear_tpu's HIndex/SIndex branches wait for those
-    indexes), or the read's device seeds when the whole read is asked for
-    at the default alpha."""
+    """mnMapReadList (src/pmpfinder.cpp:2560): DIndex/HIndex/SIndex
+    seeding, or with a DIndex the read's device seeds when the whole read
+    is asked for at the default alpha."""
     from ..index import dindex as DI
+    from ..index import hindex as HI
+    from ..index import sindex as SI
 
     read_str = cy(map_str)
     read_end = cy(map_end)
-    if (pm.seed_anchors is not None and read_str == 0 and pm.thd_alpha == 15
+    if isinstance(index, HI.HIndex):
+        got = HI.query_anchors(index, read, map_str, map_end,
+                               thd_alpha=pm.thd_alpha)
+        anchors.extend(int(a) for a in got)
+    elif isinstance(index, SI.SIndex):
+        got = SI.query_anchors(index, read, read_str, read_end,
+                               thd_alpha=pm.thd_alpha)
+        anchors.extend(int(a) for a in got)
+    elif (pm.seed_anchors is not None and read_str == 0 and pm.thd_alpha == 15
             and read_end >= len(read)):
         anchors.extend(int(a) for a in pm.seed_anchors)
     else:

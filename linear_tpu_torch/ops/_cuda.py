@@ -133,6 +133,9 @@ def lib() -> ctypes.CDLL:
             dll.lt_compact_anchors.restype = ctypes.c_int
             dll.lt_compact_anchors.argtypes = [
                 p, p, i64, i64, ctypes.c_int, p, p, p]
+            dll.lt_sort_anchors.restype = ctypes.c_int
+            dll.lt_sort_anchors.argtypes = [
+                p, p, i64, i64, ctypes.c_int, ctypes.c_int, p, p, p, p, p, p]
             dll.lt_chain_dp_full.restype = ctypes.c_int
             dll.lt_chain_dp_full.argtypes = [
                 p, p, i64, i64, i64, i64, ctypes.c_int, p, p, p, p]
@@ -478,4 +481,32 @@ def compact_anchors(anc: torch.Tensor, keep: torch.Tensor, m_out: int):
     count = torch.empty((B,), dtype=torch.int32, device=dev)
     _launch("compact_anchors", dev, lib().lt_compact_anchors, af.data_ptr(),
             kf.data_ptr(), B, n, int(m_out), out.data_ptr(), count.data_ptr())
+    return out, count
+
+
+def sort_anchors(anc: torch.Tensor, keep: torch.Tensor, n_max: int):
+    """Launch csrc/sort_anchors.cu: anc (B, ...) int64 and keep of the same
+    shape -> (out (B, min(n_max, n)) int64, count (B,) int32), n the slots
+    of a row. The scratch (two (B, n) int64 buffers for the kept items) is
+    freed on return (stream-ordered)."""
+    dev = _cuda_device(anc, "anchor sort")
+    if anc.dim() < 1 or keep.shape != anc.shape:
+        raise ValueError(f"anchors {tuple(anc.shape)} and keep "
+                         f"{tuple(keep.shape)} differ")
+    af = anc.reshape(anc.shape[0], -1)
+    kf = keep.reshape(keep.shape[0], -1)
+    _check(af, "anc", torch.int64, 2, dev)
+    _check(kf, "keep", torch.bool, 2, dev)
+    B, n = af.shape
+    if not 0 < n_max < 1 << 31 or not n < 1 << 31:
+        raise ValueError(f"n_max {n_max} or a row of {n} slots out of range")
+    n_out = min(int(n_max), n)
+    buf = torch.empty((2, B, n), dtype=torch.int64, device=dev)
+    unk = torch.empty((B, n_out), dtype=torch.int32, device=dev)
+    out = torch.empty((B, n_out), dtype=torch.int64, device=dev)
+    count = torch.empty((B,), dtype=torch.int32, device=dev)
+    _launch("sort_anchors", dev, lib().lt_sort_anchors, af.data_ptr(),
+            kf.data_ptr(), B, n, n_out, int(n_max), buf[0].data_ptr(),
+            buf[1].data_ptr(), unk.data_ptr(), out.data_ptr(),
+            count.data_ptr())
     return out, count

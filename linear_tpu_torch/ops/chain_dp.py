@@ -35,6 +35,17 @@ the add; every division truncates like C.
                                scores and eligibility inside the loop over
                                i, in O(B N) memory.
 
+  sort_anchors                 the sort that feeds the DP on the mesh path
+                               (the sort lines of linear_tpu.parallel.mesh's
+                               mapping_step and sort_chain): each row's kept
+                               anchors of the seeding grid in descending
+                               anchor-x order, the first n_max. CUDA tensors
+                               launch csrc/sort_anchors.cu (and count the
+                               launch in `sort_launches`); CPU tensors run
+                               sort_anchors_reference.
+  sort_anchors_reference       its plain PyTorch version: a stable sort of
+                               the keys and a gather.
+
 ChainsRecords (with root_ptr and f_leaf) are rebuilt on the host from the
 tables by map.chaining.chain_records_from_dp.
 """
@@ -53,10 +64,11 @@ MAX_W = 64              # the kernel's lookback limit (two per lane)
 MAX_N_FULL = 11622      # the full kernel's widest row (20 B an anchor in
                         # the 227 KB of shared memory a block may take)
 
-# launches of the CUDA kernels by chain_dp_windowed and chain_dp in this
-# process
+# launches of the CUDA kernels by chain_dp_windowed, chain_dp and
+# sort_anchors in this process
 launches = 0
 full_launches = 0
+sort_launches = 0
 
 
 def _anchor_x(a: torch.Tensor) -> torch.Tensor:
@@ -243,3 +255,38 @@ def chain_dp_windowed(anchors: torch.Tensor, n_anchors: torch.Tensor,
                                            thd_chain_depth, thd_chain_dx_depth,
                                            score_type)
     raise ValueError(f"no chain DP kernel for device {dev}")
+
+
+def sort_anchors_reference(anc: torch.Tensor, keep: torch.Tensor, n_max: int):
+    """Plain PyTorch version of the anchor sort: a stable ascending sort of
+    key = keep ? -anchor_x : 1 << 62 over each row's flattened slots, the
+    first n_max columns gathered, and the count min(kept, n_max)."""
+    B = anc.shape[0]
+    flat = anc.reshape(B, -1)
+    kflat = keep.reshape(B, -1)
+    n_anchors = kflat.sum(1).clamp(max=n_max).to(torch.int32)
+    key = torch.where(kflat, -_anchor_x(flat), 1 << 62)
+    order = torch.sort(key, dim=1, stable=True).indices[:, :n_max]
+    return torch.gather(flat, 1, order), n_anchors
+
+
+def sort_anchors(anc: torch.Tensor, keep: torch.Tensor, n_max: int):
+    """The first n_max kept anchors of each row of the seeding grid (anc
+    (B, ...) int64, keep of the same shape) in descending anchor-x order
+    (ties keep the lower flat index, as jnp.argsort's stable sort) and
+    their count min(kept, n_max) (B,) int32. Columns past the count hold
+    the row's first unkept slots. CUDA tensors launch csrc/sort_anchors.cu
+    (and count the launch); CPU tensors run the plain version. Anything
+    else raises."""
+    global sort_launches
+    if keep.device != anc.device:
+        raise ValueError(f"anchors on {anc.device}, keep on {keep.device}")
+    if anc.device.type == "cuda":
+        from . import _cuda
+
+        out = _cuda.sort_anchors(anc, keep, n_max)
+        sort_launches += 1
+        return out
+    if anc.device.type == "cpu":
+        return sort_anchors_reference(anc, keep, n_max)
+    raise ValueError(f"no anchor sort kernel for device {anc.device}")

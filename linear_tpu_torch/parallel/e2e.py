@@ -400,6 +400,7 @@ def _extension(data, device):
 def child_steps(args) -> None:
     import torch.distributed as dist
 
+    from ..ops import chain_dp as CD
     from ..ops import seeding as SD
     from . import mesh as MS
     from .dist import init_distributed
@@ -441,7 +442,8 @@ def child_steps(args) -> None:
                     res[f"dp{n_dp}_ext_{name}"] = MS.gather(dp, t).numpy()
     print(f"rank {rank} on {device}: layouts {args.layouts or 'all'}; "
           f"closed-form seeding launches {SD.fast_launches}, scan seeding "
-          f"launches {SD.scan_launches}", flush=True)
+          f"launches {SD.scan_launches}, anchor sort launches "
+          f"{CD.sort_launches}", flush=True)
     if rank == 0:
         np.savez(args.out, **res)
     dist.barrier()

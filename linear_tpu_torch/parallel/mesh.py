@@ -18,7 +18,8 @@ and returns the rank's rows. gather() assembles the global rows on the
 host. A Mesh of one rank runs every step without a collective.
 
 The seeding runs ops.seeding's kernels (K1 scan, K2 closed form with the
-shard mask), the chain DP ops.chain_dp.chain_dp_windowed (W = 64) and the
+shard mask), the sort ops.chain_dp.sort_anchors, the chain DP
+ops.chain_dp.chain_dp_windowed (W = 64) and the
 extension ops.extend_dev.filter_extend: their CUDA kernels on CUDA tensors,
 their plain versions on CPU tensors.
 """
@@ -150,24 +151,11 @@ def _on(mesh: Mesh, arr) -> torch.Tensor:
 # ------------------------------------------------------------- single device
 
 
-def sort_anchors(anc: torch.Tensor, keep: torch.Tensor, n_max: int):
-    """The first n_max kept anchors of each row in descending anchor-x
-    order (ties keep the lower flat index: a stable sort, as jnp.argsort)
-    and their count min(kept, n_max) (B,) int32. Columns past the count
-    hold unkept slots."""
-    B = anc.shape[0]
-    flat = anc.reshape(B, -1)
-    kflat = keep.reshape(B, -1)
-    n_anchors = kflat.sum(1).clamp(max=n_max).to(torch.int32)
-    key = torch.where(kflat, -CD._anchor_x(flat), 1 << 62)
-    order = torch.sort(key, dim=1, stable=True).indices[:, :n_max]
-    return torch.gather(flat, 1, order), n_anchors
-
-
 def sort_chain(anc: torch.Tensor, keep: torch.Tensor, n_max: int):
-    """sort_anchors, then the windowed chain DP (W = 64): (sorted anchors,
+    """The anchor sort (ops.chain_dp.sort_anchors: descending anchor-x, the
+    first n_max), then the windowed chain DP (W = 64): (sorted anchors,
     n_anchors, p2, score, length, overflow)."""
-    sorted_anc, n_anchors = sort_anchors(anc, keep, n_max)
+    sorted_anc, n_anchors = CD.sort_anchors(anc, keep, n_max)
     p2, score, length, overflow = CD.chain_dp_windowed(sorted_anc, n_anchors,
                                                         W=64)
     return sorted_anc, n_anchors, p2, score, length, overflow

@@ -63,12 +63,13 @@ def _task_reads(reads, rids):
 
 def _map_chunk(task):
     """Worker: the residual for a CHUNK of reads -> list of (cords_str,
-    cords_end, sam). With collect_cords False the cords lists come back
-    empty (SAM-only callers never read them), and the native engine maps
-    the chunk in one ctypes crossing. The Python engine rebuilds the
-    ChainsRecords of the reads the device chained from their raw DP tables
-    (linear_tpu/parallel/pipeline.py:95-113)."""
-    reads, rids, seeds, chains, collect_cords, persist = task
+    cords_end, sam, BAM lines). With collect_cords False the cords lists
+    come back empty (SAM-only callers never read them), and without BAM
+    lines either the native engine maps the chunk in one ctypes crossing.
+    The Python engine rebuilds the ChainsRecords of the reads the device
+    chained from their raw DP tables (linear_tpu/parallel/pipeline.py:
+    95-113)."""
+    reads, rids, seeds, chains, collect_bam, collect_cords, persist = task
     reads, rids = _task_reads(reads, rids)
     m = _WORKER_MAPPER
     # State model (linear_tpu.map.mapper.Mapper.gap_parms): the reference's
@@ -82,13 +83,16 @@ def _map_chunk(task):
         chain_pre = [None if c is None else
                      (c[0], chain_records_from_dp(c[1], c[2], c[3], len(c[0])))
                      for c in chains]
-        out = m.py_map_reads(reads, rids, seeds, chain_pre, [0] * len(reads))
-        return out if collect_cords else [([], [], sam) for _, _, sam in out]
-    if not collect_cords:
+        out = m.py_map_reads(reads, rids, seeds, chain_pre, [0] * len(reads),
+                             collect_bam)
+    elif not (collect_bam or collect_cords):
         return [([], [], m.native_engine().map_block(reads, rids,
-                                                     seeds_list=seeds))]
-    return [m.native_map_read(read, rid, seeds=s)
-            for read, rid, s in zip(reads, rids, seeds)]
+                                                     seeds_list=seeds), [])]
+    else:
+        out = [m.native_map_read(read, rid, seeds=s, collect_bam=collect_bam)
+               for read, rid, s in zip(reads, rids, seeds)]
+    return out if collect_cords else [([], [], sam, bl)
+                                      for _, _, sam, bl in out]
 
 
 @dataclass
@@ -97,6 +101,7 @@ class BlockResult:
     cords_str: List[List[int]]
     cords_end: List[List[int]]
     sam: str
+    bam_lines: List
     n_reads: int = 0  # read count (block may be an unparsed placeholder)
 
     @property
@@ -248,7 +253,7 @@ class PipelineMapper:
     def __exit__(self, *exc):
         self.close()
 
-    def run(self, read_path: str,
+    def run(self, read_path: str, collect_bam: bool = False,
             collect_cords: bool = True) -> Iterator[BlockResult]:
         """Yields per-block results in input order.
 
@@ -263,7 +268,7 @@ class PipelineMapper:
         q: "queue.Queue" = queue.Queue(maxsize=64)
         END_BLOCK = object()
         c = self.counters = PipeCounters()
-        seeding = m.device in ("cpu", "cuda")
+        seeding = m.device_work()
 
         def feeder():
             try:
@@ -320,7 +325,8 @@ class PipelineMapper:
                             rid_payload = block.ids[i:j]
                         task_seeds = seeds[i:j]
                         q.put((payload, rid_payload, task_seeds,
-                               chains[i:j], collect_cords, persist))
+                               chains[i:j], collect_bam, collect_cords,
+                               persist))
                         c.shipped_seeded += sum(s is not None
                                                 for s in task_seeds)
                     q.put((END_BLOCK, block, n, coll))
@@ -355,6 +361,7 @@ class PipelineMapper:
                 yield BlockResult(block, [r[0] for r in results],
                                   [r[1] for r in results],
                                   "".join(r[2] for r in results),
+                                  [ln for r in results for ln in r[3]],
                                   n_reads=n_reads)
                 continue
             pending.append(pool.apply_async(_map_chunk, (item,)))

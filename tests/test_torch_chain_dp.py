@@ -21,6 +21,7 @@ import jax.numpy as jnp
 sys.path.insert(0, os.path.dirname(__file__))
 
 import difftest as DT  # noqa: E402
+import test_torch_native_ready  # noqa: E402,F401  (the JAX package's libraries)
 from linear_tpu.map import chaining as JCH  # noqa: E402
 from linear_tpu.ops import chain_dp as JCD  # noqa: E402
 from linear_tpu_torch.index import dindex as DI  # noqa: E402

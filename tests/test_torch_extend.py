@@ -18,6 +18,7 @@ import jax.numpy as jnp
 sys.path.insert(0, os.path.dirname(__file__))
 
 import difftest as DT  # noqa: E402
+import test_torch_native_ready  # noqa: E402,F401  (the JAX package's libraries)
 from linear_tpu.index import dindex as JDI  # noqa: E402
 from linear_tpu.map import nengine as JNE  # noqa: E402
 from linear_tpu.map import pmpfinder as PMP  # noqa: E402

@@ -8,6 +8,7 @@ import os
 import numpy as np
 import pytest
 
+import test_torch_native_ready  # noqa: F401  (the JAX package's libraries)
 from linear_tpu.index import dindex as JDI
 from linear_tpu.ops import features as JF
 from linear_tpu.out import apf as JAPF

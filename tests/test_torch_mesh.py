@@ -13,19 +13,26 @@ counts and overflow of the extension whole. Also: init_distributed is a
 no-op without the environment, a mesh must match the world, and the
 2-rank map->SAM run (`python -m linear_tpu_torch.parallel.e2e --device
 cpu`, tools/e2e_multiproc.py's 64-read world) writes the single-process
-SAM byte for byte."""
+SAM byte for byte. And the anchor sort of the mapping steps alone
+(ops.chain_dp.sort_anchors, what CPU tensors run: its plain version)
+against the sort lines of linear_tpu's mapping_step under jax.jit, every
+column and count exactly equal: fewer kept than n_max, more, ties in
+anchor-x, nothing kept, n_max past the row, and a grid from JAX's seeder."""
 import os
 import subprocess
 import sys
 
 import numpy as np
 import pytest
+import torch
 from torch import equal as torch_equal
 
 import jax
 import jax.numpy as jnp
 
+import test_torch_native_ready  # noqa: F401  (the JAX package's libraries)
 from linear_tpu.index import dindex as JDI
+from linear_tpu.ops import chain_dp as JCD
 from linear_tpu.ops import extend_dev as JED
 from linear_tpu.ops import features as JFE
 from linear_tpu.ops import seeding as JSD
@@ -291,3 +298,115 @@ def test_e2e_map_is_byte_identical(tmp_path, ranks, ix):
     block = 64 // (ranks // ix)
     assert p.stdout.count(f"seeded on the device {block},") == ranks
     assert out.read_bytes().startswith(b"@")
+
+
+# ------------------------------------------------------------- anchor sort
+
+
+def _jax_sort(anc, keep, n_max):
+    """The sort lines of linear_tpu.parallel.mesh.mapping_step (:44-52),
+    jitted as there."""
+    @jax.jit
+    def run(anc, keep):
+        B = anc.shape[0]
+        flat = anc.reshape(B, -1)
+        kflat = keep.reshape(B, -1)
+        n_anchors = jnp.minimum(jnp.sum(kflat, axis=1), n_max).astype(jnp.int32)
+        key = jnp.where(kflat, -JCD._anchor_x(flat), jnp.int64(1) << 62)
+        order = jnp.argsort(key, axis=1)[:, :n_max]
+        return jnp.take_along_axis(flat, order, axis=1), n_anchors
+
+    srt, n = run(jnp.asarray(anc), jnp.asarray(keep))
+    return np.asarray(srt), np.asarray(n)
+
+
+def _sort_grid(kind, seed=5, B=6, P=40, cap=8):
+    """(anchors (B, P, cap) int64, keep) from a numpy seed: random strands,
+    x and y fields; `kind` sets how many slots are kept and how many
+    distinct anchor-x values there are."""
+    rng = np.random.default_rng(seed)
+    # anchor-x is the x field plus y: both narrow for ties
+    x_lo, x_hi, y_hi = ((1 << 21, (1 << 21) + 16, 4) if kind == "ties"
+                        else (0, 1 << 30, 1 << 20))
+    anc = ((rng.integers(0, 2, (B, P, cap)) << 61)
+           | (rng.integers(x_lo, x_hi, (B, P, cap)) << 20)
+           | rng.integers(0, y_hi, (B, P, cap))).astype(np.int64)
+    dens = {"few": 0.05, "many": 0.6, "ties": 0.5, "none": 0.0, "all": 1.0}
+    keep = rng.random((B, P, cap)) < dens[kind]
+    if kind == "few":
+        keep[0] = False  # a row with nothing kept beside rows with some
+    return anc, keep
+
+
+@pytest.mark.parametrize("n_max", [32, 1000])
+@pytest.mark.parametrize("kind", ["few", "many", "ties", "none", "all"])
+def test_sort_anchors_matches_jax(kind, n_max):
+    """n_max 32: rows of `few` keep fewer, of `many`, `ties` and `all`
+    more; n_max 1000 is past the row's 320 slots, and every slot comes
+    back."""
+    from linear_tpu_torch.ops import chain_dp as CD
+
+    anc, keep = _sort_grid(kind)
+    want_a, want_n = _jax_sort(anc, keep, n_max)
+    got_a, got_n = CD.sort_anchors(torch.from_numpy(anc),
+                                   torch.from_numpy(keep), n_max)
+    kept = keep.reshape(len(keep), -1).sum(1)
+    assert got_n.dtype == torch.int32
+    assert np.array_equal(got_n.numpy(), np.minimum(kept, n_max))
+    assert np.array_equal(got_n.numpy(), want_n)
+    assert got_a.shape == want_a.shape == (len(anc), min(n_max, 320))
+    assert np.array_equal(got_a.numpy(), want_a)
+    if kind == "ties":  # the stable order is decided by the flat index
+        ax = JCD._anchor_x(jnp.asarray(want_a[:, :32]))
+        assert (np.diff(np.asarray(ax), axis=1) == 0).sum() > 20
+
+
+def test_sort_anchors_on_the_jax_seeders_grid(world):
+    """A grid from linear_tpu's seeder (its unkept slots hold whatever the
+    probe read): the same input through both sorts, all columns equal."""
+    from linear_tpu_torch.ops import chain_dp as CD
+
+    dev = _jax_index(world)
+    anc, keep = JSD.batch_seed_anchors_fast(
+        jnp.asarray(world["seqs"]), jnp.asarray(world["lens"]),
+        dev.dir_start, dev.hs_lo, dev.hs_hi, cap=dev.cap)
+    anc, keep = np.asarray(anc).astype(np.int64), np.asarray(keep)
+    assert keep.sum() > 20 and (anc[~keep] != 0).any()
+    for n_max in (8, N_MAX, 4096):
+        want_a, want_n = _jax_sort(anc, keep, n_max)
+        got_a, got_n = CD.sort_anchors(torch.from_numpy(anc),
+                                       torch.from_numpy(keep), n_max)
+        assert np.array_equal(got_n.numpy(), want_n)
+        assert np.array_equal(got_a.numpy(), want_a)
+
+
+def test_sort_anchors_takes_one_device():
+    from linear_tpu_torch.ops import chain_dp as CD
+
+    anc, keep = _sort_grid("few")
+    with pytest.raises(ValueError, match="no anchor sort kernel"):
+        CD.sort_anchors(torch.from_numpy(anc).to("meta"),
+                        torch.from_numpy(keep).to("meta"), 8)
+    assert CD.sort_launches == 0  # CPU tensors launch nothing
+
+
+@pytest.mark.cuda
+def test_sort_anchors_cuda_kernel_matches_plain():
+    """The hand-written kernel against the plain version on the card, all
+    columns and counts, on every kind of grid and a row of 20,000 slots."""
+    from linear_tpu_torch.ops import chain_dp as CD
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode "
+                    "(chip_smoke.py runs this check at the mesh step's "
+                    "shapes)")
+    for kind in ("few", "many", "ties", "none", "all"):
+        for shape in (dict(), dict(B=3, P=2500, cap=8)):
+            anc, keep = (torch.from_numpy(a).cuda()
+                         for a in _sort_grid(kind, **shape))
+            for n_max in (32, 256, 8192):
+                got = CD.sort_anchors(anc, keep, n_max)
+                want = CD.sort_anchors_reference(anc, keep, n_max)
+                assert torch.equal(got[0], want[0])
+                assert torch.equal(got[1], want[1])
+    assert CD.sort_launches > 0

@@ -15,6 +15,7 @@ import sys
 import numpy as np
 import pytest
 
+import test_torch_native_ready  # noqa: F401  (the JAX package's libraries)
 from linear_tpu.index import dindex as JDI
 from linear_tpu.map.mapper import Mapper as JMapper
 from linear_tpu.map.mapper import MapperConfig as JConfig

@@ -10,6 +10,7 @@ import torch
 
 import jax.numpy as jnp
 
+import test_torch_native_ready  # noqa: F401  (the JAX package's libraries)
 from linear_tpu.index import dindex as JDI
 from linear_tpu.ops import seeding as JSD
 from linear_tpu_torch.map.mapper import Mapper, MapperConfig

@@ -4,8 +4,9 @@ N-gap and 30 reads (an N read, reads at or below the 200-base cut, an
 8 kb+ read), in the pipeline (-b 1) and in the serial loop (-b 0, where
 the device also extends), and on the same genome without N (the device
 builds the index). SAM and APF must be byte-identical (tolerance 0). Also:
-the flags the port does not run exit 1, --device cuda without a card exits
-1, and importing the port loads neither jax nor linear_tpu."""
+no flag of linear_tpu's CLI is refused (-i 2/3, -f 0/1, -ot 4/8, -a 1, the
+index files: each runs and matches linear_tpu), --device cuda without a
+card exits 1, and importing the port loads neither jax nor linear_tpu."""
 import os
 import re
 import subprocess
@@ -14,6 +15,7 @@ import sys
 import numpy as np
 import pytest
 
+import test_torch_native_ready  # noqa: F401  (the JAX package's libraries)
 from linear_tpu_torch.utils import seqio
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -52,8 +54,9 @@ def corpus(tmp_path_factory):
         if i == 5:
             r[100:103] = 4
         reads.append(r)
-    seqio.write_fasta(str(d / "r.fa"), [f"read{i} t" for i in range(30)],
-                      reads)
+    ids = [f"read{i} t" for i in range(30)]
+    seqio.write_fasta(str(d / "r.fa"), ids, reads)
+    seqio.write_fasta(str(d / "r3.fa"), ids[3:6], reads[3:6])
     return str(d)
 
 
@@ -99,12 +102,46 @@ def test_port_cpu_reports_seeding(outputs):
     ["--load-index", "x.npz"], ["-b", "0", "--device", "cpu", "-i", "2"],
 ])
 def test_unported_flags_exit_1(corpus, extra):
-    p = subprocess.run(
-        [sys.executable, "-m", "linear_tpu_torch", "filter", "r.fa", "g.fa",
-         *extra], cwd=corpus, env=_env(), capture_output=True, text=True,
-        timeout=300)
-    assert p.returncode == 1
-    assert "E[port]" in p.stderr and "ROADMAP.md" in p.stderr
+    """No flag of linear_tpu's CLI is unported: each of these, which a
+    partial port would refuse with exit 1, runs in the port and writes
+    linear_tpu's files byte for byte (SAM, or the BAMs that -ot names; the
+    index file that --load-index reads is the one linear_tpu saved)."""
+    tag = "".join(c for c in "".join(extra) if c.isalnum())
+    out = f"flags_{tag}"
+    if "--load-index" in extra:
+        assert os.path.exists(os.path.join(corpus, "x.npz")) or _filter(
+            "linear_tpu", corpus, "host",
+            extra=["--save-index", "x.npz", "-o", "flags_x"]).returncode == 0
+    ot = extra[extra.index("-ot") + 1] if "-ot" in extra else "2"
+    names = [ext for bit, ext in ((2, ".sam"), (4, ".bam"), (8, "_pbsv.bam"))
+             if int(ot) & bit]
+    files = {}
+    for pkg, device in (("linear_tpu_torch", "host"), ("linear_tpu", "host")):
+        # -a 1 aligns every read base by base: the three reads of r3.fa
+        cmd = [sys.executable, "-m", pkg, "filter",
+               "r3.fa" if "-a" in extra else "r.fa", "g.fa", "-t", "4", "-o",
+               f"{out}_{pkg}", *extra]
+        if "--device" not in extra:
+            cmd += ["--device", device]
+        elif pkg == "linear_tpu":
+            cmd[cmd.index("cpu")] = "tpu"
+        if "--save-index" in extra:
+            cmd[cmd.index("x.npz")] = f"{out}_{pkg}.npz"
+        p = subprocess.run(cmd, cwd=corpus, env=_env(), capture_output=True,
+                           text=True, timeout=600)
+        assert p.returncode == 0, p.stderr[-3000:]
+        assert "E[port]" not in p.stderr
+        files[pkg] = []
+        for ext in names:
+            with open(os.path.join(corpus, f"{out}_{pkg}{ext}"), "rb") as fh:
+                files[pkg].append(fh.read())
+    assert all(len(f) > 100 for f in files["linear_tpu_torch"])
+    assert files["linear_tpu_torch"] == files["linear_tpu"]
+    if "--save-index" in extra:
+        a, b = (dict(np.load(os.path.join(corpus, f"{out}_{pkg}.npz")))
+                for pkg in files)
+        assert sorted(a) == sorted(b)
+        assert all(np.array_equal(a[k], b[k]) for k in a)
 
 
 def test_serial_block_loop_matches(corpus, outputs):
@@ -326,6 +363,9 @@ def test_import_loads_no_jax():
         "        ('mesh', 'dist', 'e2e', 'pipeline')]\n"
         "need += ['linear_tpu_torch.ops.' + m for m in\n"
         "         ('gap_dev', 'align_pallas', 'chain_dp')]\n"
+        "need += ['linear_tpu_torch.' + m for m in\n"
+        "         ('out.bam', 'index.hindex', 'index.sindex',\n"
+        "          'index.serial')]\n"
         "bad += [m + ' not imported' for m in need if m not in sys.modules]\n"
         "print(len(sys.modules), bad)\n"
         "sys.exit(1 if bad else 0)\n")
