@@ -21,8 +21,14 @@ Phases, each of which raises (exit code != 0) on failure:
   5. the extension kernel (_filterHits + path_dst_2) against its plain
      version, both on the card, at the -b 0 path's shape (B, pad, H, C, R)
      = (1024, 8192, 256, 512, 510), with the hits of the native first pass
-     on corpus reads seeded on the card, and once more with C cut to 100 so
-     that rows overflow: cords, counts and overflow flags exactly equal;
+     on corpus reads seeded on the card, once more with C cut to 100 so
+     that rows overflow, and at (64, 131072, 256, 4352, 8190) on 20-131 kb
+     reads cut from the genome, whose feature rows exceed a warp's shared
+     memory and go to the device scratch: cords, counts and overflow flags
+     exactly equal; each launch's bound counts the work the plain version
+     reports for its inputs (distinct genome feature rows read, read
+     feature rows, window evaluations, and the longest read's serial
+     window steps, printed);
   6. the DIndex build on the card against the host build and against its
      plain version on the card, on the N-free genome (the corpus genome
      with every N replaced by a base from numpy.random.default_rng(43)):
@@ -149,6 +155,14 @@ SHAPES = [(1024, 8192, 128), (256, 8192, 512), (64, 131072, 512)]
 # corpus' pad (C = H + pad / 32), and a cut C that makes rows overflow
 EXT_B, EXT_PAD, EXT_H = 1024, 8192, 256
 EXT_CS = [EXT_H + EXT_PAD // 32, 100]
+# and one launch at the pad of the longest reads the path batches (one read
+# a batch from 2^17 bases), whose reads keep their feature rows in the
+# device scratch rather than in shared memory: EXT_LONG_B reads of 20-131 kb
+EXT_LONG_PAD, EXT_LONG_B = 131072, 64
+# operations of the extension's work: a 16-base chunk of a read strand sums
+# 16 2-mer addends (~4 operations each) once, a feature row adds its three
+# chunks' three words (6), a six-bit lane distance takes ~6
+EXT_OPS_CHUNK, EXT_OPS_ROW, EXT_OPS_LANE = 4 * 16, 6, 6
 # the chain DP check: rows a launch (Mapper.DEV_BATCH); its widths are 64
 # and 512, which the path runs on this corpus, and 8192, the widest
 CHAIN_B = 256
@@ -273,6 +287,28 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int) -> float:
+    """The card's busy time a call of fn (ms): the device time of every
+    kernel, copy and fill that torch.profiler traces over iters calls,
+    after one untraced call, summed over the device's own events only (an
+    aten op's device time repeats its kernels'). The gap to time_ms is the
+    host's share."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA)
+    return us / 1e3 / iters
+
+
 def time_once(fn):
     """(fn(), its ms by CUDA events): one call, for a plain version too slow
     to repeat."""
@@ -395,13 +431,65 @@ def _max_abs_err(got, want) -> int:
     return err
 
 
-def check_extend(g_fa, r_fa, threads):
-    """Phase 5: the extension kernel vs its plain version at (EXT_B,
-    EXT_PAD, EXT_H, C, R) for each C of EXT_CS, on corpus reads seeded on
-    the card as in the run."""
+def _extend_launch(ED, m, reads, hits, pad, C, tag):
+    """One extension launch of these reads and hits against the plain
+    version on the card: its numbers, the bound counted from the work the
+    plain version reports (count_work) for these inputs."""
     import torch
 
+    B = len(reads)
+    packed, lens = ED.pack_rows(reads, pad)
+    hm = np.zeros((B, EXT_H), dtype=np.uint64)
+    hn = np.zeros((B,), dtype=np.int32)
+    for k, h in enumerate(hits):
+        hm[k, : len(h)] = h
+        hn[k] = len(h)
+    args = [torch.from_numpy(a).cuda()
+            for a in (packed, lens, hm.view(np.int64), hn)]
+    gf = ED.upload_genome_feats([f.arr for f in m.f2], "cuda")
+    R = ED.feature_rows(pad)
+    got = ED.filter_extend(*args, gf, C)
+    *want, work = ED.filter_extend_reference(*args, gf, C, R, count_work=True)
+    torch.cuda.synchronize()
+    got = [t.cpu().numpy() for t in got]
+    want = [t.cpu().numpy() for t in want]
+    same = all(np.array_equal(a, b) for a, b in zip(got, want))
+    err = _max_abs_err(got, want)
+    n_ovf = int(want[2].sum())
+    n_ext = int((want[1] > 1).sum())
+    ms = time_ms(lambda: ED.filter_extend(*args, gf, C), 10)
+    dev_ms = device_ms(lambda: ED.filter_extend(*args, gf, C), 10)
+    plain_ms = time_ms(lambda: ED.filter_extend_reference(
+        *args, gf, C, R), 1)
+    log(f"extension check{tag} (B, pad, H, C, R) = {(B, pad, EXT_H, C, R)}: "
+        f"rows with cords {n_ext}, overflow rows {n_ovf}, cords "
+        f"{int(want[1].sum())}, equal {same}, max_abs_err {err}; work "
+        f"{json.dumps(work)}; kernel {ms:.4f} ms (device {dev_ms:.4f}), "
+        f"plain {plain_ms:.4f} ms")
+    if not same:
+        raise AssertionError(f"extension kernel disagrees with the plain "
+                             f"version at {(B, pad, C)}")
+    # reads and hits in, the distinct genome feature rows read (12 bytes
+    # each), cords out; the read strands' chunks and feature rows and the
+    # window evaluations' lane distances as operations
+    return {"shape": [B, pad, EXT_H, C, R], "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain_ms,
+            "max_abs_err": err, "overflow_rows": n_ovf,
+            "extended_rows": n_ext, "work": work,
+            **bound(sum(a.nbytes for a in (packed, lens, hm, hn))
+                    + 12 * work["genome_rows"] + B * (C * 8 + 4 + 1),
+                    EXT_OPS_CHUNK * work["read_chunks"]
+                    + EXT_OPS_ROW * work["read_rows"]
+                    + EXT_OPS_LANE * work["lane_distances"])}
+
+
+def check_extend(g_fa, r_fa, genome, threads, rng):
+    """Phase 5: the extension kernel vs its plain version at (EXT_B,
+    EXT_PAD, EXT_H, C, R) for each C of EXT_CS, on corpus reads seeded on
+    the card as in the run, and at EXT_LONG_PAD on long reads cut from the
+    genome (their feature rows in the device scratch)."""
     from linear_tpu_torch.map.mapper import Mapper, MapperConfig
+    from linear_tpu_torch.ops import _cuda
     from linear_tpu_torch.ops import extend_dev as ED
     from linear_tpu_torch.utils import seqio
 
@@ -425,51 +513,38 @@ def check_extend(g_fa, r_fa, threads):
             hits.append(h)
         if len(reads) == EXT_B:
             break
-    packed, lens = ED.pack_rows(reads, EXT_PAD)
-    hm = np.zeros((EXT_B, EXT_H), dtype=np.uint64)
-    hn = np.zeros((EXT_B,), dtype=np.int32)
-    for k, h in enumerate(hits):
-        hm[k, : len(h)] = h
-        hn[k] = len(h)
-    args = [torch.from_numpy(a).cuda()
-            for a in (packed, lens, hm.view(np.int64), hn)]
-    gf = ED.upload_genome_feats([f.arr for f in m.f2], "cuda")
-    R = ED.feature_rows(EXT_PAD)
     results = []
     for C in EXT_CS:
-        got = ED.filter_extend(*args, gf, C)
-        want = ED.filter_extend_reference(*args, gf, C, R)
-        torch.cuda.synchronize()
-        got = [t.cpu().numpy() for t in got]
-        want = [t.cpu().numpy() for t in want]
-        same = all(np.array_equal(a, b) for a, b in zip(got, want))
-        err = _max_abs_err(got, want)
-        n_ovf = int(want[2].sum())
-        n_ext = int((want[1] > 1).sum())
-        ms = time_ms(lambda: ED.filter_extend(*args, gf, C), 10)
-        plain_ms = time_ms(lambda: ED.filter_extend_reference(
-            *args, gf, C, R), 1)
-        log(f"extension check (B, pad, H, C, R) = {(EXT_B, EXT_PAD, EXT_H, C, R)}: "
-            f"rows with cords {n_ext}, overflow rows {n_ovf}, cords "
-            f"{int(want[1].sum())}, equal {same}, max_abs_err {err}; kernel "
-            f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
-        if not same:
-            raise AssertionError(f"extension kernel disagrees with the plain "
-                                 f"version at C = {C}")
-        if C == EXT_CS[0] and (n_ovf or n_ext < EXT_B // 2):
+        res = _extend_launch(ED, m, reads, hits, EXT_PAD, C, "")
+        if C == EXT_CS[0] and (res["overflow_rows"]
+                               or res["extended_rows"] < EXT_B // 2):
             raise AssertionError("the main shape should extend most rows "
                                  "without overflow")
-        if C == EXT_CS[-1] and not 0 < n_ovf < EXT_B:
+        if C == EXT_CS[-1] and not 0 < res["overflow_rows"] < EXT_B:
             raise AssertionError("the cut C should make some rows overflow")
-        # reads and hits in, cords out (the genome feature rows read
-        # depend on the hits and are not counted); ~8 operations a base
-        # and strand for the feature scripts
-        results.append({"shape": [EXT_B, EXT_PAD, EXT_H, C, R], "ms": ms,
-                        "plain_ms": plain_ms, "max_abs_err": err,
-                        "overflow_rows": n_ovf,
-                        **bound(sum(a.nbytes for a in (packed, lens, hm, hn))
-                                + EXT_B * (C * 8 + 4 + 1),
-                                16 * EXT_B * EXT_PAD)})
+        results.append(res)
+    # long reads: exact segments of the genome without N, 20-131 kb, with
+    # the hits of the native first pass (host seeds)
+    reads, hits = [], []
+    while len(reads) < EXT_LONG_B:
+        ln = int(rng.integers(20_000, EXT_LONG_PAD - 1000))
+        p = int(rng.integers(0, len(genome) - ln))
+        r = genome[p: p + ln]
+        if (r == 4).any():
+            continue
+        r = mutate(rng, r)
+        h = ne.apx_hits(r)
+        if 2 < len(h) <= EXT_H:
+            reads.append(r)
+            hits.append(h)
+    n1 = min(1 + ((len(r) - 50) >> 4) for r in reads)  # n_scripts_serial
+    if n1 <= _cuda.EXT_SMEM_ROWS:
+        raise AssertionError("the long reads should take the device scratch")
+    res = _extend_launch(ED, m, reads, hits, EXT_LONG_PAD,
+                         EXT_H + EXT_LONG_PAD // 32, " (device-scratch rows)")
+    if res["overflow_rows"]:
+        raise AssertionError("the long reads should not overflow")
+    results.append(res)
     return results
 
 
@@ -526,11 +601,13 @@ def check_devbuild(g, threads):
     err = _max_abs_err(got, want)
     same = all(np.array_equal(a, b) for a, b in zip(got, want))
     ms = time_ms(kernel, 5)
+    dev_ms = device_ms(kernel, 5)
     plain_ms = time_ms(plain, 2)
     log(f"devbuild check: genome {len(g)} b, {len(j)} samples, hs "
         f"{len(host.hs)} entries, cap {cap_host}; equal to the host build; "
         f"kernels vs plain equal {same}, max_abs_err {err}; kernels {ms:.4f} "
-        f"ms, plain {plain_ms:.4f} ms; whole build on the card {t_build:.4f} "
+        f"ms (device {dev_ms:.4f}), plain {plain_ms:.4f} ms; whole build on "
+        f"the card {t_build:.4f} "
         f"s vs host build {t_host:.4f} s + upload {t_up:.4f} s")
     if not same:
         raise AssertionError("devbuild kernels disagree with the plain version")
@@ -538,8 +615,8 @@ def check_devbuild(g, threads):
     # the genome and the sample positions in, dir and hs out; ~150
     # operations a sample (window, nine candidates, YValue)
     n_dir = 4 ** 13 + 1
-    return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
-            "build_s": t_build, "upload_s": t_up, "host_build_s": t_host,
+    return {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "max_abs_err": err, "build_s": t_build, "upload_s": t_up, "host_build_s": t_host,
             **bound(g.nbytes + j.nbytes + bs.nbytes + 4 * n_dir
                     + 8 * len(host.hs), 150 * len(j))}
 
@@ -1636,7 +1713,8 @@ def main() -> int:
     checks = check_kernel(index, genome, np.random.default_rng(SEED + 1))
     del index
     torch.cuda.empty_cache()
-    ext_checks = check_extend(g_fa, r_fa, threads)
+    ext_checks = check_extend(g_fa, r_fa, genome, threads,
+                              np.random.default_rng(SEED + 5))
     torch.cuda.empty_cache()
     db_check = check_devbuild(g_nf, threads)
     chain_checks, full_checks, full_launches = check_chain_dp(
@@ -1746,7 +1824,8 @@ def main() -> int:
               ext_checks, ext_checks[0], shapes=ext_checks),
         entry("devbuild", "devbuild.cu", "linear_tpu/ops/devbuild.py:44",
               st_nf["build_launches"], [db_check], db_check,
-              build_s=db_check["build_s"], upload_s=db_check["upload_s"]),
+              build_s=db_check["build_s"], upload_s=db_check["upload_s"],
+              device_ms=db_check["device_ms"]),
         entry("chain_dp_windowed", "chain_dp.cu",
               "linear_tpu/ops/chain_dp.py:137", py["py_b1"]["chain_launches"],
               chain_checks, chain_checks[1], shapes=chain_checks),

@@ -113,15 +113,14 @@ def lib() -> ctypes.CDLL:
             dll.lt_filter_extend.restype = ctypes.c_int
             dll.lt_filter_extend.argtypes = [
                 p, i64, i64, p, p, i64, p, p, p, p, i64, i64, i64,
-                p, p, p, p, p, p]
+                i64, i64, i64, p, p, p, p, p, p]
             dll.lt_sample_states.restype = ctypes.c_int
             dll.lt_sample_states.argtypes = [p, i64, p, i64, p, p, p, p]
-            dll.lt_devbuild_count.restype = ctypes.c_int
-            dll.lt_devbuild_count.argtypes = [
-                p, p, i64, i64, i64, p, i64, p, p, p, p, p, p]
-            dll.lt_devbuild_scatter.restype = ctypes.c_int
-            dll.lt_devbuild_scatter.argtypes = [
-                p, p, p, p, p, p, i64, p, i64, p, p]
+            dll.lt_devbuild_scratch_words.restype = i64
+            dll.lt_devbuild_scratch_words.argtypes = [i64, i64]
+            dll.lt_devbuild.restype = ctypes.c_int
+            dll.lt_devbuild.argtypes = [
+                p, p, p, p, p, p, i64, i64, i64, i64, p, p, p, p, p]
             dll.lt_chain_dp_windowed.restype = ctypes.c_int
             dll.lt_chain_dp_windowed.argtypes = [
                 p, p, i64, i64, ctypes.c_int, i64, i64, ctypes.c_int,
@@ -208,6 +207,14 @@ def _cuda_device(t: torch.Tensor, what: str) -> torch.device:
     return t.device
 
 
+# the extension kernel's shared memory a warp (a read): the feature rows of
+# up to EXT_SMEM_ROWS a strand (24 KB), the hits when H <= EXT_SMEM_HITS
+# (8 KB) and the cords when C <= EXT_SMEM_CORDS (16 KB); four warps a block
+# then take at most 192 KB of the SM's 227. Reads with more rows, and hits or
+# cords that do not fit, use device memory through the same code.
+EXT_SMEM_ROWS, EXT_SMEM_HITS, EXT_SMEM_CORDS = 1024, 1024, 2048
+
+
 def filter_extend(packed: torch.Tensor, lens: torch.Tensor,
                   hits: torch.Tensor, n_hits: torch.Tensor,
                   gf_cat: torch.Tensor, gf_off: torch.Tensor,
@@ -234,17 +241,22 @@ def filter_extend(packed: torch.Tensor, lens: torch.Tensor,
     if H < 1 or C < 1 or R < ((row_bytes * 4 - 48) >> 4) + 1:
         raise ValueError(f"H {H}, C {C}, R {R} do not fit pad "
                          f"{row_bytes * 4}")
-    feats = torch.empty((B, 2, R, 3), dtype=torch.int32, device=dev)
-    work = torch.empty((B, H), dtype=torch.int64, device=dev)
+    hs_smem = H if H <= EXT_SMEM_HITS else 0
+    cs_smem = C if C <= EXT_SMEM_CORDS else 0
+    rs_smem = min(R, EXT_SMEM_ROWS)
+    rows = torch.empty((B, 2, R, 3) if R > rs_smem else (1,),
+                       dtype=torch.int32, device=dev)
+    work = torch.empty((B, H) if not hs_smem else (1,), dtype=torch.int64,
+                       device=dev)
     cords = torch.empty((B, C), dtype=torch.int64, device=dev)
     ncords = torch.empty((B,), dtype=torch.int32, device=dev)
     ovf = torch.empty((B,), dtype=torch.bool, device=dev)
     _launch("filter_extend", dev, lib().lt_filter_extend,
             packed.data_ptr(), B, row_bytes, lens.data_ptr(), hits.data_ptr(),
             H, n_hits.data_ptr(), gf_cat.data_ptr(), gf_off.data_ptr(),
-            gf_rows.data_ptr(), gf_off.numel(), int(C), int(R),
-            feats.data_ptr(), work.data_ptr(), cords.data_ptr(),
-            ncords.data_ptr(), ovf.data_ptr())
+            gf_rows.data_ptr(), gf_off.numel(), int(C), int(R), hs_smem,
+            cs_smem, rs_smem, rows.data_ptr(), work.data_ptr(),
+            cords.data_ptr(), ncords.data_ptr(), ovf.data_ptr())
     return cords, ncords, ovf
 
 
@@ -261,50 +273,39 @@ def sample_states(genome: torch.Tensor, j: torch.Tensor):
     return tuple(out)
 
 
-def devbuild_count(xv: torch.Tensor, block_start: torch.Tensor, q: int,
-                   omit_block: int, n_buckets: int):
-    """Emission, histogram and bucket offsets of csrc/devbuild.cu. Returns
-    (kept flags (N,) uint8, cursor table (n_buckets + 1,) int32, stats (2,)
-    int64: kept samples, largest kept bucket). The (n_buckets,) histogram
-    is freed on return (stream-ordered)."""
-    dev = _cuda_device(xv, "devbuild")
-    _check(xv, "xv", torch.int64, 1, dev)
-    _check(block_start, "block_start", torch.uint8, 1, dev)
-    n = xv.numel()
-    if block_start.numel() != n:
-        raise ValueError("xv and block_start differ in length")
-    counts = torch.zeros((n_buckets,), dtype=torch.int32, device=dev)
-    tile_a = torch.empty((max(-(-n // 1024), 1),), dtype=torch.int64,
-                         device=dev)
-    tile_b = torch.empty((-(-n_buckets // 4096),), dtype=torch.int64,
-                         device=dev)
-    flag = torch.empty((n,), dtype=torch.uint8, device=dev)
-    cur = torch.empty((n_buckets + 1,), dtype=torch.int32, device=dev)
-    stats = torch.zeros((2,), dtype=torch.int64, device=dev)
-    _launch("devbuild_count", dev, lib().lt_devbuild_count, xv.data_ptr(),
-            block_start.data_ptr(), n, int(q), int(omit_block),
-            counts.data_ptr(), n_buckets, tile_a.data_ptr(), tile_b.data_ptr(),
-            flag.data_ptr(), cur.data_ptr(), stats.data_ptr())
-    return flag, cur, stats
-
-
-def devbuild_scatter(xv, yv, st, jj, gid, flag, cur, n_out: int):
-    """Counting-sort scatter and per-bucket sort of csrc/devbuild.cu: the
-    kept samples' cords (n_out,) int64; `cur` becomes `dir` in place."""
+def devbuild(xv, yv, st, jj, gid, block_start: torch.Tensor, q: int,
+             omit_block: int, n_buckets: int):
+    """Emission, stable radix sort, omission and compaction of
+    csrc/devbuild.cu: the samples' (xv, yv, st, jj, gid) (N,) int64 and
+    block starts (N,) uint8 -> (dir (n_buckets + 1,) int32, hs (max(N, 1),)
+    int64 whose first stats[0] entries are the table, stats (2,) int64: kept
+    samples, largest kept bucket). Nothing is read back; the scratch is freed
+    on return (stream-ordered)."""
     dev = _cuda_device(xv, "devbuild")
     for t, name in ((xv, "xv"), (yv, "yv"), (st, "st"), (jj, "jj"),
                     (gid, "gid")):
         _check(t, name, torch.int64, 1, dev)
         if t.numel() != xv.numel():
             raise ValueError(f"{name} differs in length from xv")
-    _check(flag, "flag", torch.uint8, 1, dev)
-    _check(cur, "cur", torch.int32, 1, dev)
-    cords = torch.empty((max(n_out, 1),), dtype=torch.int64, device=dev)
-    _launch("devbuild_scatter", dev, lib().lt_devbuild_scatter,
-            xv.data_ptr(), yv.data_ptr(), st.data_ptr(), jj.data_ptr(),
-            gid.data_ptr(), flag.data_ptr(), xv.numel(), cur.data_ptr(),
-            cur.numel() - 1, cords.data_ptr())
-    return cords[:n_out]
+    _check(block_start, "block_start", torch.uint8, 1, dev)
+    n = xv.numel()
+    if block_start.numel() != n:
+        raise ValueError("xv and block_start differ in length")
+    if n >= 1 << 31 or not 0 < n_buckets < 1 << 31 or q < 1 or omit_block < 0:
+        raise ValueError(f"{n} samples, {n_buckets} buckets, q {q} or "
+                         f"omit_block {omit_block} out of range")
+    dll = lib()
+    scratch = torch.empty((dll.lt_devbuild_scratch_words(n, n_buckets),),
+                          dtype=torch.int64, device=dev)
+    dirp = torch.empty((n_buckets + 1,), dtype=torch.int32, device=dev)
+    hs = torch.empty((max(n, 1),), dtype=torch.int64, device=dev)
+    stats = torch.empty((2,), dtype=torch.int64, device=dev)
+    _launch("devbuild", dev, dll.lt_devbuild, xv.data_ptr(), yv.data_ptr(),
+            st.data_ptr(), jj.data_ptr(), gid.data_ptr(),
+            block_start.data_ptr(), n, int(q), int(omit_block), n_buckets,
+            scratch.data_ptr(), dirp.data_ptr(), hs.data_ptr(),
+            stats.data_ptr())
+    return dirp, hs, stats
 
 
 def chain_dp_windowed(anchors: torch.Tensor, n_anchors: torch.Tensor, W: int,

@@ -10,25 +10,37 @@
 // in linear_tpu/native/le_pmp.hpp (filter_hits :249, path_dst_2 :180,
 // extend_window / previous_window / next_window :36-118).
 //
-// What bounds it on the card: the serial control flow of path_dst_2 per
-// read. Each window sweep step gathers two read feature rows and six genome
-// feature rows (12 bytes each, the genome rows random over a table of
-// genome_len / 16 rows) and does 30 six-bit lane distances; a read takes a
-// few hundred such steps, one after another. The arithmetic is small.
+// What bounds it on the card: latency, not bytes or operations. Each read
+// is a serial chain of window steps (a previous_window or next_window call:
+// three candidate windows of two read and two genome feature rows, 12 bytes
+// each, and 30 six-bit lane distances a window), each step depending on the
+// cord the last one gave. The genome rows are random over a table of
+// genome_len / 16 rows (3.5 MB for 4.6 Mb, in L2). So a launch takes at
+// least the longest read's steps times one L2 round trip, and the bytes and
+// operations of the whole batch are far below that.
 //
-// Design, two kernels on one stream:
-//   1. read_feats_kernel: one block per (read, strand), threads over the
-//      feature rows. Row r sums the 2-mer addends of bases [16r, 16r + 48)
-//      of the read or of its reverse complement (base A past the end) into
-//      three uint32 lanes; only the n1 valid rows are written, into a
-//      (B, 2, R, 3) scratch.
-//   2. filter_extend_kernel: one thread per read runs filter_hits in place
-//      on its copy of the hits, then path_dst_2, exactly in the order the
-//      C++ does: the previous_window segment is reversed in place before
-//      the next_window sweep. Cords go straight to the (B, C) output; a push
-//      past slot C sets the read's overflow flag and ends the read. The
-//      latency of the feature gathers is hidden by the many reads in
-//      flight, not inside a read.
+// Design: one warp a read, four reads a block, so a batch of 1024 reads is
+// 1024 warps on the 132 SMs.
+//   - The warp computes its read's 2_48 feature rows for both strands into
+//     shared memory: a lane sums the 2-mer addends of one 16-base chunk, and
+//     row r is chunks r, r + 1, r + 2 (two shuffles), 30 rows a round.
+//     Reads with more rows than the per-warp budget (rs_smem rows a strand)
+//     keep them in a device scratch instead: a pointer chosen per read, the
+//     same code.
+//   - filter_hits takes 32 hits at a time, one window distance a lane; a
+//     ballot and a popcount give each kept hit its slot (stable), and a
+//     dropped hit's end flag goes to the last kept slot before it (or the
+//     header), as `hits[i - ii_move] |= FLAG_END` does in the C++.
+//   - path_dst_2's control flow runs in every lane on warp-uniform values;
+//     lane 0 writes the cords. A window step spreads its 3 candidates x 2
+//     row pairs x 3 words over 18 lanes (lane 8k + 3p + w); the six genome
+//     rows of a step are neighbours and load together, shuffles sum each
+//     candidate and the first minimum wins (strict <). The previous_window
+//     segment is reversed across the lanes.
+//   - Hits and cords live in shared memory when they fit (hs_smem, cs_smem),
+//     else in the device scratch and the output row; the cords go out
+//     coalesced, zero past ncords. A push past slot C sets the read's
+//     overflow flag and ends the read.
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -47,18 +59,8 @@ constexpr uint32_t kMxu31 = (31u << 24) + (31u << 18) + (31u << 12) +
                             (31u << 6) + 31u;
 constexpr uint64_t kMaskY = (1ull << 20) - 1;
 constexpr uint64_t kFlagEnd = 1ull << 60;
-constexpr int kFeatThreads = 128;
-constexpr int kExtThreads = 64;
-
-// units table (src/pmpfinder.cpp:541): 2-mer ord 5a + b -> lane and addend;
-// N*, *N and TT add 0
-__constant__ int kUnitLane[25] = {0, 0, 0, 0, 0, 0, 1, 1, 1, 0, 1, 1, 2,
-                                  2, 0, 2, 2, 2, 0, 0, 0, 0, 0, 0, 0};
-__constant__ uint32_t kUnitAdd[25] = {
-    1u << 0,  1u << 6,  1u << 12, 1u << 18, 0, 1u << 24, 1u << 0,
-    1u << 6,  1u << 12, 0,        1u << 18, 1u << 24, 1u << 0, 1u << 6,
-    0,        1u << 12, 1u << 18, 1u << 24, 0,        0,       0,
-    0,        0,        0,        0};
+constexpr int kWarps = 4;  // reads a block
+constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ int64_t cy(uint64_t c) { return (int64_t)(c & kMaskY); }
 __device__ __forceinline__ int64_t cx(uint64_t c) {
@@ -94,153 +96,53 @@ __device__ __forceinline__ int read_base(const uint8_t* __restrict__ pk,
   return rc ? 3 - b : b;
 }
 
-__global__ void __launch_bounds__(kFeatThreads)
-read_feats_kernel(const uint8_t* __restrict__ packed, int64_t row_bytes,
-                  const int64_t* __restrict__ lens, int64_t R,
-                  uint32_t* __restrict__ feats) {
-  const int64_t b = blockIdx.x;
-  const int rc = blockIdx.y;
-  const uint8_t* pk = packed + b * row_bytes;
-  const int64_t pad = row_bytes * 4;
-  int64_t len = lens[b];
-  len = len < pad ? len : pad;
-  int64_t n1 = serial_rows(len);
-  n1 = n1 < R ? n1 : R;
-  uint32_t* out = feats + (b * 2 + rc) * R * 3;
-  for (int64_t r = threadIdx.x; r < n1; r += blockDim.x) {
-    uint32_t acc[3] = {0u, 0u, 0u};
-    int cur = read_base(pk, len, r * 16, rc);
-    for (int64_t p = r * 16; p < r * 16 + 48; p++) {
-      const int nxt = read_base(pk, len, p + 1, rc);
-      const int o = cur * 5 + nxt;
-      acc[kUnitLane[o]] += kUnitAdd[o];
-      cur = nxt;
+// Rows [0, n1) of one strand into out (3 words a row). The units table
+// (src/pmpfinder.cpp:541) on bases a, b < 4: k = 4a + b adds 1 << 6 (k % 5)
+// to word k / 5, and TT (k = 15) adds nothing.
+__device__ void strand_rows(const uint8_t* __restrict__ pk, int64_t len, int rc,
+                            int64_t n1, uint32_t* out, int lane) {
+  for (int64_t c0 = 0; c0 < n1; c0 += 30) {
+    const int64_t c = c0 + lane;
+    uint32_t w0 = 0, w1 = 0, w2 = 0;
+    if (c < n1 + 2) {
+      int cur = read_base(pk, len, 16 * c, rc);
+      for (int p = 1; p <= 16; p++) {
+        const int nxt = read_base(pk, len, 16 * c + p, rc);
+        const int k = 4 * cur + nxt;
+        const uint32_t add = 1u << (6 * (k % 5));
+        w0 += k < 5 ? add : 0u;
+        w1 += k >= 5 && k < 10 ? add : 0u;
+        w2 += k >= 10 && k < 15 ? add : 0u;
+        cur = nxt;
+      }
     }
-    out[r * 3 + 0] = acc[0];
-    out[r * 3 + 1] = acc[1];
-    out[r * 3 + 2] = acc[2];
+    w0 += __shfl_down_sync(kFull, w0, 1) + __shfl_down_sync(kFull, w0, 2);
+    w1 += __shfl_down_sync(kFull, w1, 1) + __shfl_down_sync(kFull, w1, 2);
+    w2 += __shfl_down_sync(kFull, w2, 1) + __shfl_down_sync(kFull, w2, 2);
+    if (lane < 30 && c < n1) {
+      out[3 * c] = w0;
+      out[3 * c + 1] = w1;
+      out[3 * c + 2] = w2;
+    }
   }
 }
 
-// _scriptDist63_31 (le_feats.hpp:130) with the uint32 wrap
-__device__ __forceinline__ int64_t sdist(const uint32_t* __restrict__ a,
-                                         const uint32_t* __restrict__ b) {
-  int64_t t = 0;
-  for (int i = 0; i < 3; i++) {
-    const uint32_t d = a[i] + kMxu31 - b[i];
-    for (int s = 24; s >= 0; s -= 6) t += iabs((int64_t)((d >> s) & 63) - 31);
-  }
+// the five six-bit lane distances of one word pair (_scriptDist63_31,
+// le_feats.hpp:130, with the uint32 wrap)
+__device__ __forceinline__ int word_dist(uint32_t a, uint32_t b) {
+  const uint32_t d = a + kMxu31 - b;
+  int t = 0;
+  for (int s = 24; s >= 0; s -= 6) t += abs((int)((d >> s) & 63) - 31);
   return t;
 }
 
-// One read's feature tables: its strand's rows and one genome's rows.
-struct Feats {
-  const uint32_t* f1;  // read rows, 3 words each
+// One read strand's rows and one genome's rows.
+struct Win {
+  const uint32_t* f1;
   int64_t n1;
-  const uint32_t* f2;  // genome rows
+  const uint32_t* f2;
   int64_t n2;
 };
-
-// window_dist_u (le_feats.hpp:145): unchecked form, out of range -> 2^30
-__device__ __forceinline__ int64_t window_dist_u(const Feats& f, int64_t a,
-                                                 int64_t b) {
-  if (a + 3 >= f.n1 || b + 3 >= f.n2 || a < 0 || b < 0) return 1ll << 30;
-  return sdist(f.f1 + a * 3, f.f2 + b * 3) +
-         sdist(f.f1 + (a + 3) * 3, f.f2 + (b + 3) * 3);
-}
-
-// window_dist_c (le_feats.hpp:152): bounds-checked, out of range -> 1000
-__device__ __forceinline__ int64_t window_dist_c(const Feats& f, int64_t a,
-                                                 int64_t b) {
-  if (a + 4 < f.n1 && b + 4 < f.n2)
-    return sdist(f.f1 + a * 3, f.f2 + b * 3) +
-           sdist(f.f1 + (a + 3) * 3, f.f2 + (b + 3) * 3);
-  return kAbortScore;
-}
-
-// previous_window (le_pmp.hpp:36); 0 on failure
-__device__ uint64_t previous_window(const Feats& f, uint64_t cord) {
-  const int64_t gid = cid(cord);
-  const int std_ = cstrand(cord);
-  const int64_t xs = cx(cord) >> kCellBit;
-  const int64_t ys = cy(cord) >> kCellBit;
-  if (ys < kMed || xs < kSup) return 0;
-  const int64_t y = ys - kMed;
-  int64_t dmin = (1ll << 32) - 1, xmin = 0;
-  for (int64_t k = 0; k < kSup - kInf; k++) {
-    const int64_t d = window_dist_u(f, y, xs - kSup + k);
-    if (d < dmin) {
-      dmin = d;
-      xmin = xs - kSup + k;
-    }
-  }
-  if (dmin > kWthr) return 0;
-  if (xs - xmin > kMed)
-    return make_cord(gid, (xs - kMed) << kCellBit,
-                     (xs - xmin - kMed + y) << kCellBit, std_);
-  return make_cord(gid, xmin << kCellBit, y << kCellBit, std_);
-}
-
-// next_window (le_pmp.hpp:63); 0 on failure
-__device__ uint64_t next_window(const Feats& f, uint64_t cord) {
-  const int64_t gid = cid(cord);
-  const int std_ = cstrand(cord);
-  const int64_t xs = cx(cord) >> kCellBit;
-  const int64_t ys = cy(cord) >> kCellBit;
-  if (ys + kSup * 2 > f.n1 || xs + kSup * 2 > f.n2) return 0;
-  const int64_t y = ys + kMed;
-  int64_t dmin = (1ll << 32) - 1, xmin = 0;
-  for (int64_t k = 0; k < kSup - kInf; k++) {
-    const int64_t d = window_dist_u(f, y, xs + kInf + k);
-    if (d < dmin) {
-      dmin = d;
-      xmin = xs + kInf + k;
-    }
-  }
-  if (dmin > kWthr) return 0;
-  if (xmin - xs > kMed)
-    return make_cord(gid, (xs + kMed) << kCellBit,
-                     (xs + kMed - xmin + y) << kCellBit, std_);
-  return make_cord(gid, xmin << kCellBit, y << kCellBit, std_);
-}
-
-// A read's cords row: pushes stop the read once slot C would be passed.
-struct Cords {
-  uint64_t* c;
-  int64_t n;
-  int64_t cap;
-  bool ovf;
-  __device__ bool push(uint64_t v) {
-    if (n >= cap) {
-      ovf = true;
-      return false;
-    }
-    c[n++] = v;
-    return true;
-  }
-};
-
-// extend_window (le_pmp.hpp:91); false when the cords overflowed
-__device__ bool extend_window(const Feats& f, Cords& cords, uint64_t cordy_str,
-                              uint64_t cordy_end) {
-  const int64_t p_str = cords.n - 1;
-  for (;;) {
-    const uint64_t nc = previous_window(f, cords.c[cords.n - 1]);
-    if (nc == 0 || (uint64_t)cy(nc) < cordy_str) break;
-    if (!cords.push(nc)) return false;
-  }
-  for (int64_t lo = p_str, hi = cords.n - 1; lo < hi; lo++, hi--) {
-    const uint64_t t = cords.c[lo];
-    cords.c[lo] = cords.c[hi];
-    cords.c[hi] = t;
-  }
-  for (;;) {
-    const uint64_t nc = next_window(f, cords.c[cords.n - 1]);
-    if (nc == 0 || (uint64_t)(cy(nc) + kWindow) >= cordy_end) break;
-    if (!cords.push(nc)) return false;
-  }
-  return true;
-}
 
 struct Genomes {
   const uint32_t* cat;
@@ -249,50 +151,196 @@ struct Genomes {
   int64_t n;
 };
 
-__device__ __forceinline__ Feats feats_of(const uint32_t* read_feats, int64_t R,
-                                          int64_t n1, const Genomes& g,
-                                          uint64_t h) {
+// the tables of hit or cord h's strand and genome (gid clamped to the table)
+__device__ __forceinline__ Win win_of(const uint32_t* rows, int64_t strand_words,
+                                      int64_t n1, const Genomes& g, uint64_t h) {
   int64_t gid = cid(h);
   gid = gid < g.n ? gid : g.n - 1;
-  return Feats{read_feats + (int64_t)cstrand(h) * R * 3, n1,
-               g.cat + (int64_t)g.off[gid] * 3, (int64_t)g.rows[gid]};
+  return Win{rows + cstrand(h) * strand_words, n1,
+             g.cat + (int64_t)g.off[gid] * 3, (int64_t)g.rows[gid]};
 }
 
-__global__ void __launch_bounds__(kExtThreads)
-filter_extend_kernel(const int64_t* __restrict__ hits_in,
-                     const int32_t* __restrict__ n_hits,
-                     const int64_t* __restrict__ lens, int64_t pad,
-                     const uint32_t* __restrict__ feats, Genomes g, int64_t B,
-                     int64_t H, int64_t C, int64_t R,
+// window_dist_c (le_feats.hpp:152) in one lane: bounds-checked, out of
+// range -> 1000
+__device__ int64_t window_dist_c(const Win& f, int64_t a, int64_t b) {
+  if (!(a + 4 < f.n1 && b + 4 < f.n2)) return kAbortScore;
+  int64_t t = 0;
+  for (int p = 0; p < 2; p++)
+    for (int w = 0; w < 3; w++)
+      t += word_dist(f.f1[(a + 3 * p) * 3 + w], f.f2[(b + 3 * p) * 3 + w]);
+  return t;
+}
+
+// The three candidates of a sweep step at read row y and genome rows x0,
+// x0 + 1, x0 + 2, each with window_dist_u (le_feats.hpp:145; out of range
+// -> 2^30); the first minimum to *dmin, its row to *xmin. Warp-wide.
+__device__ void step_min(const Win& f, int64_t y, int64_t x0, int lane,
+                         int64_t* dmin, int64_t* xmin) {
+  const int k = lane >> 3, j = lane & 7;
+  const int p = j / 3, w = j - 3 * p;
+  const int64_t x = x0 + k;
+  int t = 0;
+  if (k < 3 && j < 6 && y >= 0 && y + 3 < f.n1 && x >= 0 && x + 3 < f.n2)
+    t = word_dist(f.f1[(y + 3 * p) * 3 + w], f.f2[(x + 3 * p) * 3 + w]);
+  t += __shfl_xor_sync(kFull, t, 1);
+  t += __shfl_xor_sync(kFull, t, 2);
+  t += __shfl_xor_sync(kFull, t, 4);
+  int64_t best = (1ll << 32) - 1, bx = 0;
+  for (int kk = 0; kk < 3; kk++) {
+    const int s = __shfl_sync(kFull, t, 8 * kk);
+    const int64_t xk = x0 + kk;
+    const bool in = y >= 0 && y + 3 < f.n1 && xk >= 0 && xk + 3 < f.n2;
+    const int64_t d = in ? (int64_t)s : (1ll << 30);
+    if (d < best) {
+      best = d;
+      bx = xk;
+    }
+  }
+  *dmin = best;
+  *xmin = bx;
+}
+
+// previous_window (le_pmp.hpp:36); 0 on failure. Warp-wide.
+__device__ uint64_t previous_window(const Win& f, uint64_t cord, int lane) {
+  const int64_t gid = cid(cord);
+  const int std_ = cstrand(cord);
+  const int64_t xs = cx(cord) >> kCellBit;
+  const int64_t ys = cy(cord) >> kCellBit;
+  if (ys < kMed || xs < kSup) return 0;
+  const int64_t y = ys - kMed;
+  int64_t dmin, xmin;
+  step_min(f, y, xs - kSup, lane, &dmin, &xmin);
+  if (dmin > kWthr) return 0;
+  if (xs - xmin > kMed)
+    return make_cord(gid, (xs - kMed) << kCellBit,
+                     (xs - xmin - kMed + y) << kCellBit, std_);
+  return make_cord(gid, xmin << kCellBit, y << kCellBit, std_);
+}
+
+// next_window (le_pmp.hpp:63); 0 on failure. Warp-wide.
+__device__ uint64_t next_window(const Win& f, uint64_t cord, int lane) {
+  const int64_t gid = cid(cord);
+  const int std_ = cstrand(cord);
+  const int64_t xs = cx(cord) >> kCellBit;
+  const int64_t ys = cy(cord) >> kCellBit;
+  if (ys + kSup * 2 > f.n1 || xs + kSup * 2 > f.n2) return 0;
+  const int64_t y = ys + kMed;
+  int64_t dmin, xmin;
+  step_min(f, y, xs + kInf, lane, &dmin, &xmin);
+  if (dmin > kWthr) return 0;
+  if (xmin - xs > kMed)
+    return make_cord(gid, (xs + kMed) << kCellBit,
+                     (xs + kMed - xmin + y) << kCellBit, std_);
+  return make_cord(gid, xmin << kCellBit, y << kCellBit, std_);
+}
+
+// A read's cords: every lane holds n, ovf and the last cord; lane 0 writes.
+struct Cords {
+  uint64_t* c;
+  int64_t n;
+  int64_t cap;
+  bool ovf;
+  uint64_t back;
+  int lane;
+  __device__ bool push(uint64_t v) {
+    if (n >= cap) {
+      ovf = true;
+      return false;
+    }
+    if (lane == 0) c[n] = v;
+    n++;
+    back = v;
+    return true;
+  }
+};
+
+// extend_window (le_pmp.hpp:91); false when the cords overflowed. Warp-wide.
+__device__ bool extend_window(const Win& f, Cords& cords, uint64_t cordy_str,
+                              uint64_t cordy_end, int lane) {
+  const int64_t p_str = cords.n - 1;
+  for (;;) {
+    const uint64_t nc = previous_window(f, cords.back, lane);
+    if (nc == 0 || (uint64_t)cy(nc) < cordy_str) break;
+    if (!cords.push(nc)) return false;
+  }
+  __syncwarp();
+  const int64_t seg = cords.n - p_str;
+  for (int64_t t = lane; t < seg / 2; t += 32) {
+    const uint64_t a = cords.c[p_str + t];
+    cords.c[p_str + t] = cords.c[cords.n - 1 - t];
+    cords.c[cords.n - 1 - t] = a;
+  }
+  __syncwarp();
+  cords.back = cords.c[cords.n - 1];
+  for (;;) {
+    const uint64_t nc = next_window(f, cords.back, lane);
+    if (nc == 0 || (uint64_t)(cy(nc) + kWindow) >= cordy_end) break;
+    if (!cords.push(nc)) return false;
+  }
+  return true;
+}
+
+__global__ void __launch_bounds__(kWarps * 32)
+filter_extend_kernel(const uint8_t* __restrict__ packed, int64_t row_bytes,
+                     const int64_t* __restrict__ lens,
+                     const int64_t* __restrict__ hits_in,
+                     const int32_t* __restrict__ n_hits, Genomes g, int64_t B,
+                     int64_t H, int64_t C, int64_t R, int64_t hs_smem,
+                     int64_t cs_smem, int64_t rs_smem,
+                     uint32_t* __restrict__ rows_scratch,
                      uint64_t* __restrict__ work, uint64_t* __restrict__ cords_out,
                      int32_t* __restrict__ ncords_out,
                      uint8_t* __restrict__ ovf_out) {
-  const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x & 31, wib = threadIdx.x >> 5;
+  const int64_t b = (int64_t)blockIdx.x * kWarps + wib;
+  if (b >= B) return;  // the whole warp; nothing below syncs the block
+  uint64_t* wsm = (uint64_t*)(smem + (size_t)wib *
+                              (8 * (hs_smem + cs_smem) + 24 * rs_smem));
+  uint64_t* hits = hs_smem ? wsm : work + b * H;
+  uint64_t* out = cords_out + b * C;
+  Cords cords{cs_smem ? wsm + hs_smem : out, 0, C, false, 0, lane};
+  const int64_t pad = row_bytes * 4;
   int64_t len = lens[b];
   len = len < pad ? len : pad;
   int64_t n1 = serial_rows(len);
   n1 = n1 < R ? n1 : R;
-  const uint32_t* rf = feats + b * 2 * R * 3;
-  uint64_t* hits = work + b * H;
-  Cords cords{cords_out + b * C, 0, C, false};
+  const bool rows_smem = n1 <= rs_smem;
+  uint32_t* rows = rows_smem ? (uint32_t*)(wsm + hs_smem + cs_smem)
+                             : rows_scratch + b * 2 * R * 3;
+  const int64_t strand_words = (rows_smem ? rs_smem : R) * 3;
   int64_t n = n_hits[b];
   n = n < H ? n : H;
-  for (int64_t i = 0; i < n; i++) hits[i] = (uint64_t)hits_in[b * H + i];
 
   if (n >= 2) {
-    // filter_hits (le_pmp.hpp:249)
-    int64_t ii_move = 0;
-    for (int64_t i = 1; i < n; i++) {
-      const uint64_t h = hits[i];
-      const Feats f = feats_of(rf, R, n1, g, h);
-      if (window_dist_c(f, cy(h) >> kCellBit, cx(h) >> kCellBit) < kWthrRej)
-        hits[i - ii_move] = h;
-      else
-        ii_move++;
-      if (is_end(h)) hits[i - ii_move] |= kFlagEnd;
+    for (int64_t i = lane; i < n; i += 32) hits[i] = (uint64_t)hits_in[b * H + i];
+    const uint8_t* pk = packed + b * row_bytes;
+    strand_rows(pk, len, 0, n1, rows, lane);
+    strand_rows(pk, len, 1, n1, rows + strand_words, lane);
+    __syncwarp();
+    // filter_hits (le_pmp.hpp:249), 32 hits at a time
+    const unsigned lt = (1u << lane) - 1;
+    int64_t kept = 1;  // slot 0, the header, stays
+    for (int64_t i0 = 1; i0 < n; i0 += 32) {
+      const int64_t i = i0 + lane;
+      const uint64_t h = i < n ? hits[i] : 0;
+      bool keep = false;
+      if (i < n) {
+        const Win f = win_of(rows, strand_words, n1, g, h);
+        keep = window_dist_c(f, cy(h) >> kCellBit, cx(h) >> kCellBit) < kWthrRej;
+      }
+      const unsigned km = __ballot_sync(kFull, keep);
+      const int64_t slot = kept + __popc(km & lt);
+      __syncwarp();
+      if (keep) hits[slot] = h;
+      __syncwarp();
+      if (i < n && !keep && is_end(h))
+        atomicOr((unsigned long long*)&hits[slot - 1],
+                 (unsigned long long)kFlagEnd);
+      __syncwarp();
+      kept += __popc(km);
     }
-    n -= ii_move;
+    n = kept;
   } else {
     n = 0;
   }
@@ -328,7 +376,7 @@ filter_extend_kernel(const int64_t* __restrict__ hits_in,
         // the :1366 quirk: the whole hit value when f_sp_l
         if (f_sp_l) cordy_str = h_itt;
         else if (is_end(h_prv)) cordy_str = 0;
-        else cordy_str = (uint64_t)cy(cords.c[cords.n - 1]);
+        else cordy_str = (uint64_t)cy(cords.back);
         cordy_end = (uint64_t)cy(hits[itt_next]);
         if (!cords.push(h_itt & ~kFlagEnd)) break;
         f_append = true;
@@ -347,47 +395,62 @@ filter_extend_kernel(const int64_t* __restrict__ hits_in,
         cordy_end = (uint64_t)ready_end;
       }
       if (f_append &&
-          !extend_window(feats_of(rf, R, n1, g, h_itt), cords, cordy_str, cordy_end))
+          !extend_window(win_of(rows, strand_words, n1, g, h_itt), cords,
+                         cordy_str, cordy_end, lane))
         break;
-      if (f_block_end) cords.c[cords.n - 1] |= kFlagEnd;
+      if (f_block_end) {
+        cords.back |= kFlagEnd;
+        if (lane == 0) cords.c[cords.n - 1] = cords.back;
+      }
       itt_next = f_block_end ? itt_first : itt_next;
       itt = itt_next;
       itt_next++;
     }
   }
-  for (int64_t k = cords.n; k < C; k++) cords.c[k] = 0;
-  ncords_out[b] = (int32_t)cords.n;
-  ovf_out[b] = cords.ovf ? 1 : 0;
+  __syncwarp();
+  for (int64_t k = lane; k < C; k += 32) {
+    if (k >= cords.n) out[k] = 0;
+    else if (cords.c != out) out[k] = cords.c[k];
+  }
+  if (lane == 0) {
+    ncords_out[b] = (int32_t)cords.n;
+    ovf_out[b] = cords.ovf ? 1 : 0;
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches both kernels on `stream`. packed (B, row_bytes) uint8 with
+// Launches the kernel on `stream`. packed (B, row_bytes) uint8 with
 // row_bytes = pad / 4; lens (B,) int64; hits (B, H) int64; n_hits (B,)
 // int32; genome features cat (rows + 8, 3) uint32, off and rows (G,) int32.
-// Scratch: feats (B, 2, R, 3) uint32 and work (B, H) uint64. Outputs: cords
-// (B, C) uint64, ncords (B,) int32, ovf (B,) uint8. Returns the cudaError_t
-// of the launches (0: launched).
+// Per warp (read) the shared memory holds the hits when hs_smem = H (else 0:
+// they go to work (B, H) uint64), the cords when cs_smem = C (else 0: they
+// are built in the output row), and rs_smem feature rows a strand; a read
+// with more rows keeps them in rows_scratch (B, 2, R, 3) uint32 (needed only
+// when R > rs_smem). Outputs: cords (B, C) uint64, ncords (B,) int32, ovf
+// (B,) uint8. Returns the cudaError_t of the launch (0: launched).
 int lt_filter_extend(const uint8_t* packed, int64_t B, int64_t row_bytes,
                      const int64_t* lens, const int64_t* hits, int64_t H,
                      const int32_t* n_hits, const uint32_t* gf_cat,
                      const int32_t* gf_off, const int32_t* gf_rows,
-                     int64_t n_genomes, int64_t C, int64_t R, uint32_t* feats,
+                     int64_t n_genomes, int64_t C, int64_t R, int64_t hs_smem,
+                     int64_t cs_smem, int64_t rs_smem, uint32_t* rows_scratch,
                      uint64_t* work, uint64_t* cords, int32_t* ncords,
                      uint8_t* ovf, void* stream) {
   if (B <= 0) return (int)cudaSuccess;
-  cudaStream_t s = (cudaStream_t)stream;
-  read_feats_kernel<<<dim3((unsigned)B, 2), kFeatThreads, 0, s>>>(
-      packed, row_bytes, lens, R, feats);
-  cudaError_t err = cudaGetLastError();
+  const size_t bytes =
+      (size_t)kWarps * (size_t)(8 * (hs_smem + cs_smem) + 24 * rs_smem);
+  cudaError_t err = cudaFuncSetAttribute(
+      filter_extend_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const Genomes g{gf_cat, gf_off, gf_rows, n_genomes};
-  filter_extend_kernel<<<(unsigned)((B + kExtThreads - 1) / kExtThreads),
-                         kExtThreads, 0, s>>>(hits, n_hits, lens, row_bytes * 4,
-                                              feats, g, B, H, C, R, work, cords,
-                                              ncords, ovf);
+  filter_extend_kernel<<<(unsigned)((B + kWarps - 1) / kWarps), kWarps * 32,
+                         bytes, (cudaStream_t)stream>>>(
+      packed, row_bytes, lens, hits, n_hits, g, B, H, C, R, hs_smem, cs_smem,
+      rs_smem, rows_scratch, work, cords, ncords, ovf);
   return (int)cudaGetLastError();
 }
 

@@ -15,7 +15,10 @@ caller uploads the host build instead.
   counting sort buckets of more than omit_block (400) emitted samples are
                 dropped; dir = exclusive prefix sum of the kept counts
                 (4^13 + 1 int32); hs = the kept samples' cords, ordered by
-                (xval, cord)
+                (xval, cord), which is the order of a stable sort of the
+                kept samples by 2 * xval + strand (samples come in (gid, j)
+                order and j is unique within a genome; the CUDA build sorts
+                so)
 
 `sample_states` and `emit_count_sort` launch the hand-written CUDA kernels
 (csrc/devbuild.cu) for CUDA tensors and run the plain PyTorch versions,
@@ -90,19 +93,19 @@ def emit_count_sort(xv, yv, st, jj, gid, block_start,
                     omit_block: int = DEFAULT_OMIT_BLOCK):
     """(dir, hs, largest kept bucket) of the samples; see the module
     docstring. CUDA tensors launch the kernels (one count), CPU tensors
-    run the plain version. Reads two scalars back (kept samples and the
-    largest bucket), never the tables."""
+    run the plain version. Reads two scalars back once, after every launch
+    (kept samples and the largest bucket), never the tables."""
     global launches
     dev = xv.device
     if dev.type == "cuda":
         from . import _cuda
 
-        flag, cur, stats = _cuda.devbuild_count(
-            xv, block_start.to(torch.uint8), Q, omit_block, N_BUCKETS)
-        n_kept, largest = stats.tolist()
-        hs = _cuda.devbuild_scatter(xv, yv, st, jj, gid, flag, cur, n_kept)
+        dirp, hs, stats = _cuda.devbuild(xv, yv, st, jj, gid,
+                                         block_start.to(torch.uint8), Q,
+                                         omit_block, N_BUCKETS)
         launches += 1
-        return cur, hs, largest
+        n_kept, largest = stats.tolist()
+        return dirp, hs[:n_kept], largest
     if dev.type == "cpu":
         return emit_count_sort_reference(xv, yv, st, jj, gid, block_start,
                                          omit_block)

@@ -235,7 +235,37 @@ class _Reads:
                          self.genome_rows(goff, x + 3)))
 
 
-def _filter_hits(hits, n, rd: _Reads):
+class _Work:
+    """What the data makes the extension do, counted by the plain version
+    when asked (chip_smoke.py's bound of the kernel; the main path never
+    asks): the window evaluations (each 30 six-bit lane distances), the
+    genome feature rows they read (absolute rows of GenomeFeats.cat), the
+    read feature rows and the distinct 16-base chunks they sum (row r is
+    chunks r, r + 1 and r + 2), and per read the serial window steps
+    (previous_window / next_window calls, each waiting on the last)."""
+
+    def __init__(self, B: int, device):
+        self.evals = 0
+        self.grows = []
+        self.steps = torch.zeros(B, dtype=torch.int64, device=device)
+
+    def window(self, ok, goff, x):
+        """Evaluations where ok; each reads genome rows goff + x, + x + 3."""
+        self.evals += int(ok.sum())
+        g = torch.broadcast_to(goff, x.shape)[ok] + x[ok]
+        self.grows += [g, g + 3]
+
+    def summary(self, read_rows: int, read_chunks: int) -> dict:
+        rows = torch.cat(self.grows) if self.grows else torch.zeros(0)
+        return {"window_evals": self.evals, "lane_distances": 30 * self.evals,
+                "genome_rows": int(torch.unique(rows).numel()),
+                "read_rows": read_rows, "read_chunks": read_chunks,
+                "max_steps": int(self.steps.max())
+                if self.steps.numel() else 0,
+                "steps": int(self.steps.sum())}
+
+
+def _filter_hits(hits, n, rd: _Reads, work: _Work = None):
     """filter_hits (le_pmp.hpp:249) on (B, H) hits with n (B,) in use.
     Returns (filtered hits, new n)."""
     B, H = hits.shape
@@ -244,11 +274,13 @@ def _filter_hits(hits, n, rd: _Reads):
     y = _cy(hits) >> CELL_BIT
     x = _cx(hits) >> CELL_BIT
     gid = _cid(hits)
-    _, n2 = rd.genome(gid)
+    goff, n2 = rd.genome(gid)
     dist = rd.dist(_strand(hits), gid, y, x)
     # window_dist_c: bounds-checked with d = 4
-    dist = torch.where((y + 4 < rd.n1[:, None]) & (x + 4 < n2), dist,
-                       ABORT_SCORE)
+    in_range = (y + 4 < rd.n1[:, None]) & (x + 4 < n2)
+    dist = torch.where(in_range, dist, ABORT_SCORE)
+    if work is not None:
+        work.window(in_use & in_range & (n[:, None] >= 2), goff, x)
     keep = (in_use & (dist < WTHR_REJ)) | (pos == 0)
     slot = torch.cumsum(keep.to(torch.int64), dim=1) - 1
     out = torch.zeros((B, H + 1), dtype=hits.dtype, device=hits.device)
@@ -262,12 +294,14 @@ def _filter_hits(hits, n, rd: _Reads):
     return out, new_n
 
 
-def _window(rd: _Reads, cur, seg_s, seg_g, prev: bool):
+def _window(rd: _Reads, cur, seg_s, seg_g, prev: bool, work: _Work = None,
+            m=None):
     """previous_window / next_window (le_pmp.hpp:36, :63) from cord cur,
-    on read strand seg_s and genome seg_g; 0 where it fails."""
+    on read strand seg_s and genome seg_g; 0 where it fails. With work, the
+    calls of the rows in mask m are counted."""
     gid, std = _cid(cur), _strand(cur)
     xs, ys = _cx(cur) >> CELL_BIT, _cy(cur) >> CELL_BIT
-    _, n2 = rd.genome(seg_g)
+    goff, n2 = rd.genome(seg_g)
     if prev:
         ok = (ys >= MED) & (xs >= SUP)
         y, x0 = ys - MED, xs - SUP
@@ -281,6 +315,9 @@ def _window(rd: _Reads, cur, seg_s, seg_g, prev: bool):
     in_range = ((yk >= 0) & (yk + 3 < rd.n1[:, None]) & (xk >= 0)
                 & (xk + 3 < n2[:, None]))
     d = torch.where(in_range, d, 1 << 30)
+    if work is not None:
+        work.steps += m.to(torch.int64)
+        work.window((m & ok)[:, None] & in_range, goff[:, None], xk)
     dmin = torch.full_like(xs, (1 << 32) - 1)
     xmin = torch.zeros_like(xs)
     for k in range(SUP - INF):  # the first minimum (strict <)
@@ -301,7 +338,7 @@ def _window(rd: _Reads, cur, seg_s, seg_g, prev: bool):
     return torch.where(ok, nc, 0)
 
 
-def _path_dst_2(hits, n, rd: _Reads, lens, C: int):
+def _path_dst_2(hits, n, rd: _Reads, lens, C: int, work: _Work = None):
     """path_dst_2 (le_pmp.hpp:180) for every row at once: a per-row phase
     register steps each read through the C++ control flow, one scan step
     or one window sweep per phase and iteration, in program order. Returns
@@ -390,7 +427,7 @@ def _path_dst_2(hits, n, rd: _Reads, lens, C: int):
 
         # one previous_window step; at its stop the segment is reversed
         m = phase == _PREV
-        nc = _window(rd, back(), seg_s, seg_g, prev=True)
+        nc = _window(rd, back(), seg_s, seg_g, True, work, m)
         stop = m & ((nc == 0) | _ult(_cy(nc), cys))
         push(nc, m & ~stop)
         inseg = stop[:, None] & (jc >= p_str[:, None]) & (jc < ncords[:, None])
@@ -401,7 +438,7 @@ def _path_dst_2(hits, n, rd: _Reads, lens, C: int):
 
         # one next_window step
         m = phase == _NEXT
-        nc = _window(rd, back(), seg_s, seg_g, prev=False)
+        nc = _window(rd, back(), seg_s, seg_g, False, work, m)
         stop = m & ((nc == 0) | ~_ult(_cy(nc) + WINDOW, cye))
         push(nc, m & ~stop)
         phase = torch.where(stop, _EPI, phase)
@@ -422,21 +459,30 @@ def _path_dst_2(hits, n, rd: _Reads, lens, C: int):
 
 def filter_extend_reference(packed: torch.Tensor, lens: torch.Tensor,
                             hits: torch.Tensor, n_hits: torch.Tensor,
-                            gf: GenomeFeats, C: int, R: int):
+                            gf: GenomeFeats, C: int, R: int,
+                            count_work: bool = False):
     """Plain PyTorch version of the extension (see the module docstring):
     packed (B, pad/4) uint8, lens (B,) int64, hits (B, H) int64 (slot 0
     the FLAG_END header), n_hits (B,) int32 -> (cords (B, C) int64, ncords
     (B,) int32, ovf (B,) bool). R is the feature row count of the pad,
-    ((pad - 48) >> 4) + 1. Runs on any device."""
+    ((pad - 48) >> 4) + 1. Runs on any device. With count_work, a fourth
+    item counts the work these inputs need (_Work.summary; the read rows
+    and chunks are both strands' of the reads with 2 or more hits)."""
     lens = lens.to(torch.int64)
     seqs = _unpack(packed, lens)
     feats = torch.stack([_read_feats(seqs, R),
                          _read_feats(_revcomp(seqs, lens), R)], dim=1)
     rd = _Reads(feats, _serial_rows(lens), gf)
     n = n_hits.to(torch.int64)
-    fh, fn = _filter_hits(hits, n, rd)
+    work = _Work(n.shape[0], n.device) if count_work else None
+    fh, fn = _filter_hits(hits, n, rd, work)
     fn = torch.where(n < 2, 0, fn)  # path_dst: `hits.size() < 2` before the filter
-    return _path_dst_2(fh, fn, rd, lens, C)
+    out = _path_dst_2(fh, fn, rd, lens, C, work)
+    if work is None:
+        return out
+    n1 = rd.n1.clamp(max=R) * (n >= 2)
+    return (*out, work.summary(int(2 * n1.sum()),
+                               int(2 * ((n1 + 2) * (n1 > 0)).sum())))
 
 
 def feature_rows(pad: int) -> int:

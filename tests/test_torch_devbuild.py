@@ -108,3 +108,61 @@ def test_cuda_build_matches_plain(glen, threads):
     got = DB.build_dindex_device_host(seqs, "cuda", threads)
     assert np.array_equal(got.dir, want.dir)
     assert np.array_equal(got.hs, want.hs)
+
+
+def _repeat_genome(seed, glen, copies):
+    """Random bases around a tandem repeat of a 45-base unit: its five
+    sample phases put `copies` emitted samples in each of five buckets."""
+    rng = np.random.default_rng(seed)
+    unit = rng.integers(0, 4, 45).astype(np.uint8)
+    half = rng.integers(0, 4, glen).astype(np.uint8)
+    return np.concatenate([half[: glen // 2], np.tile(unit, copies),
+                           half[glen // 2:]])
+
+
+_ORDER_SETS = {
+    "one_over": lambda: [_repeat_genome(11, 20000, 1200)],
+    "one_under": lambda: [_repeat_genome(12, 20000, 300)],
+    "three_over": lambda: [_repeat_genome(13, 16000, 1200),
+                           np.random.default_rng(14).integers(
+                               0, 4, 9000).astype(np.uint8),
+                           np.random.default_rng(15).integers(
+                               0, 4, 3001).astype(np.uint8)],
+    "two_under": lambda: [np.random.default_rng(16).integers(
+                              0, 4, 12000).astype(np.uint8),
+                          _repeat_genome(17, 8000, 300)],
+}
+
+
+@pytest.mark.parametrize("threads", [1, 4, 8])
+@pytest.mark.parametrize("kind", sorted(_ORDER_SETS))
+def test_hs_is_a_stable_sort_by_xval_and_strand(kind, threads):
+    """The order the CUDA build rests on: a stable sort of the kept samples,
+    in sample order, by 2 * xval + strand gives the hs of JAX's device build
+    and of the port's plain version (yval never decides the order: samples
+    come in (gid, j) order and j is unique within a genome)."""
+    seqs = _ORDER_SETS[kind]()
+    parts = []
+    for gid, g in enumerate(seqs):
+        j, bs = DB._samples(len(g), threads)
+        jt = torch.from_numpy(j)
+        xv, yv, st = DB.sample_states(torch.from_numpy(g), jt)
+        parts.append((xv, yv, st, jt, torch.full_like(jt, gid),
+                      torch.from_numpy(bs)))
+    xv, yv, st, jj, gid, bs = (torch.cat(c) for c in zip(*parts))
+    idx = torch.arange(len(xv))
+    prev = torch.nn.functional.pad(xv[:-1], (1, 0), value=-1)
+    start = torch.cummax(torch.where((xv != prev) | bs.bool(), idx, 0),
+                         dim=0).values
+    emit = (idx - start) % DB.Q == 0
+    counts = torch.bincount(xv[emit], minlength=DB.N_BUCKETS)
+    over = counts > 400
+    kept = emit & ~over[xv]
+    assert bool(over.any()) == kind.endswith("over")
+    order = torch.sort(2 * xv[kept] + st[kept], stable=True).indices
+    cord = (((gid << 30) + (jj + DB.CONST_ANCHOR_ZERO)) << 20) + yv + (st << 61)
+    got = cord[kept][order].numpy().view(np.uint64)
+    jax_dev = JDB.build_dindex_device_host(seqs, threads_emul=threads)
+    _, hs, _ = DB.emit_count_sort_reference(xv, yv, st, jj, gid, bs)
+    assert np.array_equal(got, jax_dev.hs)
+    assert np.array_equal(got, hs.numpy().view(np.uint64))

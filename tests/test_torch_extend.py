@@ -201,3 +201,63 @@ def test_cuda_kernel_matches_plain(world):
         want = [t.cpu().numpy() for t in ED.filter_extend_reference(
             *args, gf, C, R)]
         _assert_same(got, want)
+
+
+def test_work_count_matches_host_oracle(world, monkeypatch):
+    """The plain version's count of the work (count_work, which the smoke's
+    bound of the kernel reads) against the Python oracle's calls: window
+    steps (previous_window / next_window calls) in all and of the longest
+    read, in-range window evaluations of the filter and the sweeps, and the
+    distinct genome feature rows they read. The outputs do not change."""
+    reads, hits = world["reads"][:12], world["hits"][:12]
+    batch = _batch(reads, hits)
+    pk, ln, hm, hn = (torch.from_numpy(a) for a in batch)
+    gf = ED.upload_genome_feats(world["f2"], "cpu")
+    want = ED.filter_extend(pk, ln, hm, hn, gf, C_FULL)
+    *got, work = ED.filter_extend_reference(pk, ln, hm, hn, gf, C_FULL, R,
+                                            count_work=True)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+    calls, evals, rows = [0], [0], set()
+    orig_u, orig_c = PMP.window_dist_u, PMP.window_dist_c
+
+    def counted(fn, d):
+        def wrap(f1, f2, a, b):
+            if a >= 0 and b >= 0 and a + d < len(f1.rows) \
+                    and b + d < len(f2.rows):
+                evals[0] += 1
+                rows.update({(id(f2), b), (id(f2), b + 3)})
+            return fn(f1, f2, a, b)
+        return wrap
+
+    def stepped(gen_fn):
+        def wrap(*args):
+            calls[0] += 1
+            return (yield from gen_fn(*args))
+        return wrap
+
+    monkeypatch.setattr(PMP, "window_dist_u", counted(orig_u, 3))
+    monkeypatch.setattr(PMP, "window_dist_c", counted(orig_c, 4))
+    monkeypatch.setattr(PMP, "previous_window", stepped(PMP.previous_window))
+    monkeypatch.setattr(PMP, "next_window", stepped(PMP.next_window))
+    f2 = [PMP.Feats(a) for a in world["f2"]]
+    steps = []
+    for r, h in zip(reads, hits):
+        f1 = [PMP.Feats(JF.create_features_serial(r)),
+              PMP.Feats(JF.create_features_serial(seqio.revcomp(r)))]
+        hl, cords, before = [int(v) for v in h], [], calls[0]
+        if len(hl) >= 2:
+            PMP.filter_hits(hl, f1, f2)
+            PMP.run_serial(PMP.path_dst_2(hl, f1, f2, cords, 0, len(r),
+                                          len(r)))
+        steps.append(calls[0] - before)
+    assert work["steps"] == sum(steps) > 0
+    assert work["max_steps"] == max(steps)
+    assert work["window_evals"] == evals[0]
+    assert work["lane_distances"] == 30 * evals[0]
+    assert work["genome_rows"] == len(rows)
+    n1 = [2 * (1 + max(0, (len(r) - 50) >> 4)) for r, h in zip(reads, hits)
+          if len(h) >= 2]
+    assert work["read_rows"] == sum(n1)
+    assert work["read_chunks"] == sum(n1) + 4 * len(n1)
