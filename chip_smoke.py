@@ -15,7 +15,9 @@ Phases, each of which raises (exit code != 0) on failure:
      under _build/smoke/;
   4. the seeding kernel against its plain PyTorch version, both on the card
      at the main path's shapes (rows, pad, m_out) = (1024, 8192, 128),
-     (256, 8192, 512) and (64, 131072, 512): exact equality on the defined
+     (256, 8192, 512) and (64, 131072, 512), and at JAX's default m_out
+     8,192 (32, 262144, 8192), whose rows pass the 4,096 slots the kernel
+     keeps in shared memory: exact equality on the defined
      part of every row (anchors[:count] and the count | probed << 32
      tail); times from CUDA events;
   5. the extension kernel (_filterHits + path_dst_2) against its plain
@@ -45,7 +47,10 @@ Phases, each of which raises (exit code != 0) on failure:
      long + corpus rows, the dense rows and the corpus rows shuffled out of
      order: every column exactly equal to its plain version on the card,
      and on every row the windowed kernel does not flag equal to the
-     windowed tables on [:n];
+     windowed tables on [:n]; the windowed DP at W 1, 33 and 128 on the
+     (256, 512) corpus rows, and the full DP at N 12,288 (its rows in the
+     device scratch) on two long-read rows, one chain of 12,288 anchors and
+     a shuffled row, each exactly equal to its plain version;
   8. the main paths, `python -m linear_tpu_torch filter reads genome -t
      <ncpu> -ot 2` as subprocesses:
        -b 1 in turns with --device cuda, host, host, cuda: all SAM files
@@ -69,8 +74,9 @@ Phases, each of which raises (exit code != 0) on failure:
   9. the padded seeding kernels and the multi-process mesh path:
        (a) the scan seeding kernel against its plain version on the card at
        (MESH_B, MESH_PAD, the index's cap), on corpus reads with every read
-       with N, and on 60-120 kb reads from the genome cut to the pad (no
-       corpus read is longer than the pad); the compaction
+       with N, on 60-120 kb reads from the genome cut to the pad (no
+       corpus read is longer than the pad), and on hand-built reads dense
+       with N (n_dense_rows); the compaction
        kernel on that grid at m_out 1024 and 8192, against its plain
        version and a torch.sort(stable=True) compaction; the closed-form
        kernel on N-free corpus reads, whole and in MESH_SHARDS xval shards
@@ -102,7 +108,8 @@ Phases, each of which raises (exit code != 0) on failure:
        (a) banded_align_scores on the band regions that -a 1's align_cords
        would align for the first BANDED_READS corpus reads (the Python
        engine's cords, mapped on the host; align_regions cuts them), at W
-       = 100 (the -a path's band) and 128 (JAX's default): each launch
+       = 100 (the -a path's band), 128 (JAX's default) and 600 (past the
+       1,024 diagonals of one thread a diagonal): each launch
        exactly equal to its plain version on the card, and the scores of
        the first ALN_ORACLE_READS reads' regions equal to the host traceback's
        (banded_align_cigar_fast);
@@ -113,6 +120,9 @@ Phases, each of which raises (exit code != 0) on failure:
        kernel's, and the first GAP_ORACLE_ITEMS items without overflow
        equal to the host oracle (map.gap's 9-mer streams and
        g_create_anchors);
+       (b') gap_anchors past its kernel's shared tables (g_max 1,025, r_max
+       4,097) and on windows near 2^30, GAP_EDGE_ITEMS items each, against
+       the plain version on the card (check_gap_edges);
  11. the other configurations of the CLI, each `filter ... --device cuda`
      against `--device host` as subprocesses, every output file
      byte-identical: -b 1 -ot 15 on the whole corpus (.sam, .apf, .bam,
@@ -150,7 +160,11 @@ READ_LEN = 7000
 SEED = 42
 # (rows, pad, m_out): the two tiers of Mapper._device_seed_stream2 at the
 # corpus' pad, and the longest reads the device seeds
-SHAPES = [(1024, 8192, 128), (256, 8192, 512), (64, 131072, 512)]
+# and JAX's default m_out, 8,192, past the 4,096 slots the kernel keeps in
+# shared memory (the rest in its device scratch), on reads of 200-262 kb:
+# a 131 kb read probes ~3,300 slots on this genome
+SHAPES = [(1024, 8192, 128), (256, 8192, 512), (64, 131072, 512),
+          (32, 262144, 8192)]
 # the extension check: a full batch of Mapper._device_extend_block at the
 # corpus' pad (C = H + pad / 32), and a cut C that makes rows overflow
 EXT_B, EXT_PAD, EXT_H = 1024, 8192, 256
@@ -166,6 +180,10 @@ EXT_OPS_CHUNK, EXT_OPS_ROW, EXT_OPS_LANE = 4 * 16, 6, 6
 # the chain DP check: rows a launch (Mapper.DEV_BATCH); its widths are 64
 # and 512, which the path runs on this corpus, and 8192, the widest
 CHAIN_B = 256
+# the windowed DP at other lookbacks on the (256, 512) corpus rows, and the
+# full DP past the 11,622 anchors a row that fit a block's shared memory
+CHAIN_WS = (1, 33, 128)
+FULL_WIDE_N = 12288
 # the Python-engine runs take the first reads of the corpus (on 8 cores the
 # engine maps some 470 reads/s at -b 1 and 65 at -b 0, and -a 1 about 5):
 # the genome stays whole
@@ -186,7 +204,13 @@ MESH_SHARDS = 4
 # first ALN_ORACLE_READS reads' regions held against the host traceback;
 # GAP_ITEMS gap-interval items cut from the corpus genome, the first
 # GAP_ORACLE_ITEMS without overflow held against the host oracle
-BANDED_READS, ALN_BAND, BANDED_WS = 512, 100, (100, 128)
+# (W 600: 1,200 diagonals, past the 1,024 threads of a block, so a thread
+# owns two); GAP_EDGE_ITEMS items at each shape past the gap kernel's shared
+# tables, and near 2^30
+BANDED_READS, ALN_BAND, BANDED_WS = 512, 100, (100, 128, 600)
+GAP_EDGE_ITEMS = 16
+GAP_EDGE_LIMITS = ((1025, 4096, False), (1024, 4097, False),
+                   (1024, 4096, True))
 ALN_ORACLE_READS = 48
 GAP_ITEMS, GAP_ORACLE_ITEMS = 512, 32
 # the least time of a kernel's work: its bytes over the H100 SXM's HBM3 rate,
@@ -335,6 +359,9 @@ def check_kernel(index, genome, rng):
         if pad == 131072:
             reads = check_reads(rng, genome, rows, pad, 100_000, 131_000,
                                 [pad, 131_000])
+        elif pad > 131072:
+            reads = check_reads(rng, genome, rows, pad, 200_000, 262_000,
+                                [pad, 262_000])
         else:
             # a few padding rows at the end of the superchunk
             reads = check_reads(rng, genome, rows - 3, pad, 202, pad,
@@ -371,6 +398,9 @@ def check_kernel(index, genome, rng):
                                  f"at {(rows, pad, m_out)}")
         if pad == 8192 and m_out == 128 and n_over == 0:
             raise AssertionError("no overflowing row at the main shape")
+        if m_out > 4096 and int(probed.max()) <= 4096:
+            raise AssertionError("no row of the m_out 8192 launch passes "
+                                 "the kernel's 4,096 shared-memory slots")
         # the wire in, the rows out, two dir words a call position and an
         # hs entry a probed slot below m_out; ~150 operations a position
         # (window, nine candidates, YValue), ~20 a slot
@@ -699,6 +729,33 @@ def check_chain_dp(g_fa, r_fa, genome, threads, rng):
                         **bound(arr.nbytes + cnt.nbytes + len(rs) * (12 * N + 1),
                                 40 * edges)})
 
+    # any W: the (256, 512) corpus rows at W 1, 33 and 128 (a lane takes
+    # one, two and four lookbacks; 64 is the Mapper's, above)
+    a, c, _ = windowed["corpus", 512]
+    cnt = c.cpu().numpy()
+    for W in CHAIN_WS:
+        got = [t.cpu().numpy() for t in CD.chain_dp_windowed(a, c, W=W)]
+        want = [t.cpu().numpy() for t in CD.chain_dp_windowed_reference(
+            a, c, W=W)]
+        err = _max_abs_err(got, want)
+        same = all(np.array_equal(x.astype(np.int64), y.astype(np.int64))
+                   for x, y in zip(got, want))
+        ms = time_ms(lambda: CD.chain_dp_windowed(a, c, W=W), 10)
+        plain_ms = time_ms(lambda: CD.chain_dp_windowed_reference(a, c, W=W),
+                           1)
+        log(f"chain DP check (B, N, W) = {(CHAIN_B, 512, W)}, corpus rows: "
+            f"chained anchors {int((want[0] >= 0).sum())}, overflow rows "
+            f"{int(want[3].sum())}, equal {same}, max_abs_err {err}; kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
+        if not same:
+            raise AssertionError(f"chain DP kernel disagrees with the plain "
+                                 f"version at W = {W}")
+        edges = sum(int(np.minimum(np.arange(n), W).sum()) for n in cnt)
+        results.append({"shape": [CHAIN_B, 512], "W": W, "rows": "corpus",
+                        "ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+                        **bound(a.numel() * 8 + c.numel() * 4
+                                + CHAIN_B * (12 * 512 + 1), 40 * edges)})
+
     # the full DP (linear_tpu's batch_chain_dp) through its entry point on
     # the same rows, and on the corpus rows shuffled out of order (JAX's
     # mask, not the C++ loop's break, decides there)
@@ -745,6 +802,34 @@ def check_chain_dp(g_fa, r_fa, genome, threads, rng):
                      "plain_ms": plain_ms, "max_abs_err": err,
                      **bound(a.numel() * 8 + c.numel() * 4 + 12 * a.numel(),
                              40 * edges)})
+    # past 11,622 anchors a row (20 bytes each in a block's 227 KB of
+    # shared memory) the kernel keeps the row in its device scratch: two
+    # long-read rows and two hand-built ones at N 12,288, one of them a
+    # single chain over all its columns, one shuffled
+    chain = [((600000 - 20 * k - (900000 - 20 * k) + (1 << 20)) << 20)
+             + 900000 - 20 * k for k in range(FULL_WIDE_N)]
+    wide_rows = (long_rows + rows)[:2] + [
+        chain, [chain[k] for k in rng.permutation(3000)]]
+    a, c = on_card(wide_rows, FULL_WIDE_N)[2:]
+    got, ms = time_once(lambda: CD.chain_dp(a, c))
+    want, plain_ms = time_once(lambda: CD.chain_dp_reference(a, c))
+    got = [t.cpu().numpy() for t in got]
+    want = [t.cpu().numpy() for t in want]
+    err = _max_abs_err(got, want)
+    same = all(np.array_equal(x, y) for x, y in zip(got, want))
+    edges = full_dp_edges(a, c)
+    log(f"full chain DP check (B, N) = {tuple(a.shape)}, long, chain and "
+        f"shuffled rows, the rows in the device scratch: chained columns "
+        f"{int((want[0] >= 0).sum())}, admitted edges {edges}, equal {same}, "
+        f"max_abs_err {err}; kernel {ms:.4f} ms (one call), plain "
+        f"{plain_ms:.4f} ms")
+    if not same or want[2][2].max() != FULL_WIDE_N:
+        raise AssertionError("the full chain DP kernel disagrees with the "
+                             "plain version past 11,622 anchors a row")
+    full.append({"shape": list(a.shape), "rows": "long, chain, shuffled",
+                 "ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+                 **bound(a.numel() * 8 + c.numel() * 4 + 12 * a.numel(),
+                         40 * edges)})
     del windowed, full_in, full_out
     torch.cuda.empty_cache()
     return results, full, full_launches
@@ -890,18 +975,54 @@ def check_anchor_sort(name, anc, keep, rng, hand_rows: bool) -> list:
     return out
 
 
-def _grid_bound(seqs, lens, P, cap, kept, scan: bool) -> dict:
+def n_dense_rows(genome, rng, n):
+    """n reads from the genome dense with N, for K1's per-read state: N in
+    the init window (the first N-free 21-window moves on), only in the last
+    21 bases, a base N every 21, all N, N runs inside the first 56 bases
+    (the calls k < 41 still hold init bases), 30 % N, and reads of 21-57
+    bases, in turns."""
+    def cut(ln):
+        p = int(rng.integers(0, len(genome) - ln))
+        r = genome[p: p + ln].copy()
+        r[r == 4] = 0
+        return r
+
+    out = []
+    while len(out) < n:
+        ln = int(rng.integers(1000, 8000))
+        r = cut(ln)
+        k = len(out) % 9
+        if k == 0:
+            r[int(rng.integers(0, 21)): 25] = 4
+        elif k == 1:
+            r[-21:] = 4
+        elif k == 2:
+            r[int(rng.integers(0, 21))::21] = 4
+        elif k == 3:
+            r[:] = 4
+        elif k == 4:
+            r[20:41] = 4
+        elif k == 5:
+            r[35:56] = 4
+        elif k == 6:
+            r[rng.random(ln) < 0.3] = 4
+        elif k == 7:
+            r = cut(int(rng.integers(21, 58)))
+            r[len(r) // 2] = 4
+        out.append(r)  # k == 8: N-free
+    return out
+
+
+def _grid_bound(seqs, lens, P, cap, kept) -> dict:
     """Bytes and operations of a padded seeding launch: the reads in, two
     dir words a call position and one hs entry a kept slot (a lower count
     than the probed slots), the (rows, P, cap) grid out (9 bytes a slot);
-    ~150 operations a position, ~20 a kept slot, and for the scan ~12 a
-    rolled base."""
+    ~150 operations a position (its states in closed form, the window,
+    nine candidates, four YValue bases), ~20 a kept slot."""
     calls = n_calls(lens)
     nbytes = (seqs.nbytes + lens.nbytes + 8 * calls + 8 * kept
               + 9 * seqs.shape[0] * P * cap)
-    ops = 150 * calls + 20 * kept + (12 * int(np.asarray(lens).sum())
-                                     if scan else 0)
-    return bound(nbytes, ops)
+    return bound(nbytes, 150 * calls + 20 * kept)
 
 
 def _equal_all(got, want) -> bool:
@@ -943,10 +1064,13 @@ def check_padded_seeding(r_fa, idx, genome, rng):
         return seqs, lens, torch.from_numpy(seqs).cuda(), \
             torch.from_numpy(lens).cuda()
 
-    # K1: every read with N among corpus reads; then the long reads
+    # K1: every read with N among corpus reads; then the long reads, and
+    # hand-built reads dense with N
     scan_grid = None
     for kind, rs in (("corpus, every read with N", (with_n + n_free)[:MESH_B]),
-                     ("60-120 kb reads cut to the pad", long_cut)):
+                     ("60-120 kb reads cut to the pad", long_cut),
+                     ("hand-built N-dense reads",
+                      n_dense_rows(genome, rng, MESH_B))):
         seqs, lens, s, ln = on_card(rs)
         args = (s, ln, index.dir_start, index.hs, cap)
         got = SD.batch_seed_anchors(*args)
@@ -967,7 +1091,7 @@ def check_padded_seeding(r_fa, idx, genome, rng):
             raise AssertionError(f"the scan launch ({kind}) is not as planned")
         out["scan"].append({"shape": [len(rs), MESH_PAD, cap], "rows": kind,
                             "ms": ms, "plain_ms": plain_ms, "max_abs_err": 0,
-                            **_grid_bound(seqs, lens, P, cap, kept, True)})
+                            **_grid_bound(seqs, lens, P, cap, kept)})
         if scan_grid is None:
             scan_grid = got
         del want
@@ -1024,7 +1148,7 @@ def check_padded_seeding(r_fa, idx, genome, rng):
                              "version")
     out["fast"].append({"shape": [MESH_B, MESH_PAD, cap], "rows": "N-free",
                         "ms": ms, "plain_ms": plain_ms, "max_abs_err": 0,
-                        **_grid_bound(seqs, lens, P, cap, kept, False)})
+                        **_grid_bound(seqs, lens, P, cap, kept)})
     dir_sh, hs_sh, xb, sh_cap = MS.shard_index_by_xval(idx, MESH_SHARDS)
     tot_a = torch.zeros_like(full[0])
     tot_k = torch.zeros(full[1].shape, dtype=torch.int32, device="cuda")
@@ -1455,6 +1579,76 @@ def check_gap(genome, rng):
     return result, launches
 
 
+def check_gap_edges(genome, rng) -> list:
+    """Phase 10 (b'): gap_anchors past the kernel's shared tables (g_max
+    1,025, r_max 4,097: its keyed kernel takes every item) and on windows
+    that start within 5 g_max of 2^30 (the block-scan kernel merges those
+    items' kept pairs by JAX's emission key): GAP_EDGE_ITEMS items each
+    whose windows fill g_max and r_max, against the plain version on the
+    card (count, overflow, and anchors and keys up to min(count, m_out))."""
+    import torch
+
+    from linear_tpu_torch.ops import gap_dev as GD
+
+    cap, m_out = 16, 2048
+    out = []
+    for g_max, r_max, near in GAP_EDGE_LIMITS:
+        items = []
+        while len(items) < GAP_EDGE_ITEMS:
+            glen, rlen = 5 * g_max, r_max
+            gs = int(rng.integers(0, len(genome) - glen - 1000))
+            rs_pos = gs + int(rng.integers(0, 100))
+            read = mutate(rng, genome[rs_pos: rs_pos + rlen + 500])
+            if (genome[gs: gs + glen + 8] == 4).any() or (read == 4).any():
+                continue
+            t = len(items)
+            items.append({
+                "gwin": genome[gs: gs + glen + 8], "g_n": glen,
+                "gpos0": (1 << 30) - 1500 - 700 * t if near else gs,
+                "rwin": read[: rlen + 8], "r_n": rlen, "rpos0": 0,
+                "rvcp": len(read) - 1,
+                "a_lo": GD.LLMIN if t % 2 == 0 else gs - rs_pos - 500,
+                "a_hi": GD.LLMAX if t % 2 == 0 else gs - rs_pos + 500})
+        packed = GD.pack_items(items, g_max, r_max)
+        args = [torch.from_numpy(x).cuda() for x in packed]
+        kern = [t.cpu().numpy() for t in GD.gap_anchors(
+            *args, g_max, r_max, cap, m_out)]
+        want, plain_ms = time_once(lambda: GD.gap_anchors_reference(
+            *args, g_max, r_max, cap, m_out))
+        want = [t.cpu().numpy() for t in want]
+        defined = (np.arange(m_out)[None, :]
+                   < np.minimum(want[2], m_out)[:, None])
+        got_d = [np.where(defined, x, 0) for x in kern[:2]] + kern[2:]
+        want_d = [np.where(defined, x, 0) for x in want[:2]] + want[2:]
+        same = all(np.array_equal(x, y) for x, y in zip(got_d, want_d))
+        err = _max_abs_err(got_d, want_d)
+        ms = time_ms(lambda: GD.gap_anchors(*args, g_max, r_max, cap, m_out),
+                     10)
+        samples, positions, cand = gap_work(packed, g_max, cap)
+        kept = int(np.minimum(want[2], m_out).sum())
+        tag = "windows near 2^30" if near else "past the shared tables"
+        log(f"gap anchors check (B, g_max, r_max) = "
+            f"{(len(items), g_max, r_max)}, {tag}: kept anchors "
+            f"{int(want[2].sum())}, overflow items {int(want[3].sum())}, "
+            f"equal {same}, max_abs_err {err}; kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms")
+        if not same or not kept:
+            raise AssertionError(f"the gap anchor kernel disagrees with the "
+                                 f"plain version ({tag}, g_max {g_max}, "
+                                 f"r_max {r_max})")
+        steps = 2 * int(np.ceil(np.log2(g_max)))
+        out.append({"shape": [len(items), g_max, r_max, cap, m_out],
+                    "rows": tag, "ms": ms, "plain_ms": plain_ms,
+                    "max_abs_err": err,
+                    **bound(sum(x.nbytes for x in packed) + 16 * kept
+                            + 5 * len(items),
+                            36 * (samples + positions) + 3 * steps * positions
+                            + 20 * cand)})
+        del args
+    torch.cuda.empty_cache()
+    return out
+
+
 def host_seeds(index, read):
     """The host's seeds of a whole read (getDIndexMatchAll)."""
     from linear_tpu_torch.index import dindex as DI
@@ -1681,6 +1875,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
 
+    t_start = time.time()
     smi = nvidia_smi()
     log(f"card: {smi}")
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
@@ -1796,6 +1991,7 @@ def main() -> int:
     t10 = time.time()
     banded, banded_launches = check_banded(g_fa, r_fa, threads)
     gap, gap_launches = check_gap(genome, np.random.default_rng(SEED + 4))
+    gap_edges = check_gap_edges(genome, np.random.default_rng(SEED + 6))
     log(f"phase 10: {time.time() - t10:.2f} s")
     if not (full_launches and banded_launches and gap_launches):
         raise AssertionError("an entry point of phase 7 or 10 did not launch "
@@ -1815,6 +2011,7 @@ def main() -> int:
                 "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
                 "library_ms": main.get("library_ms"), **extra}
 
+    log(f"smoke: {time.time() - t_start:.1f} s from the card's query to here")
     print(json.dumps({"kernels": [
         entry("seed_superchunk", "seed_superchunk.cu",
               "linear_tpu/ops/seeding.py:443", st_cuda["launches"], checks,
@@ -1850,7 +2047,8 @@ def main() -> int:
               "linear_tpu/ops/align_pallas.py:142", banded_launches, banded,
               banded[0], shapes=banded, path=ENTRY_ONLY),
         entry("gap_anchors", "gap_anchors.cu", "linear_tpu/ops/gap_dev.py:76",
-              gap_launches, [gap], gap, path=ENTRY_ONLY),
+              gap_launches, [gap] + gap_edges, gap,
+              shapes=[gap] + gap_edges, path=ENTRY_ONLY),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,279 @@
+"""Time some of the port's CUDA kernels on synthetic inputs, in this checkout
+or side by side in several.
+
+    python -m linear_tpu_torch.kernel_times
+    python linear_tpu_torch/kernel_times.py --roots A B C --out times.json
+
+A root is a checkout (a directory that holds linear_tpu_torch/). With
+--roots the kernels of every root are built at once, one process each, and
+then the roots are timed in the order given and again in reverse (A B C C B
+A; a root may be named more than once), each turn in a process of its own
+that imports that root's package. Every turn times every case on the same
+inputs, made from --seed with numpy: "ms" is a call of the entry point by
+CUDA events over --iters calls after a warm one (host work included),
+"device_ms" the card's busy time a call by torch.profiler. "sha" is a
+digest of the case's outputs, so two roots that agree show the same one; a
+case that a root refuses (ValueError) reads "refused". It prints a JSON
+line a turn and a table of each root's turns, and writes the turns to
+--out.
+
+The cases: the windowed chain DP on (256, 512) rows at W 1, 33, 64 and 128;
+the full chain DP on the same rows and on (64, 8192) long-read rows; the
+gap anchors on 512 items at the defaults (1024, 4096, 16, 2048) and on 16
+items near 2^30; the banded alignment on 625 pairs of up to 7,000 bases at
+W 100, 128 and 600.
+"""
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+
+
+def _anchor(x, y):
+    """Anchors whose getAnchorX is x and whose read position is y."""
+    return ((x - y + (1 << 20)) << 20) + y
+
+
+def chain_rows(rng, B: int, lo: int, hi: int, read_len: int):
+    """B rows of lo..hi anchors: three quarters along one diagonal with a
+    drift of a few bases (a read's true hits, 15 bases apart on average),
+    the rest scattered within 50 kb of it; sorted descending by anchor-x
+    as the kernels take them."""
+    rows = []
+    for _ in range(B):
+        n = int(rng.integers(lo, hi + 1))
+        n_true = 3 * n // 4
+        y = np.sort(rng.choice(read_len, n_true, replace=False))
+        x0 = int(rng.integers(100_000, 4_000_000))
+        x = x0 + y + np.cumsum(rng.integers(-2, 3, n_true))
+        yn = rng.integers(0, read_len, n - n_true)
+        xn = x0 + rng.integers(-50_000, 50_000, n - n_true)
+        xs = np.concatenate([x, xn]).astype(np.int64)
+        ys = np.concatenate([y, yn]).astype(np.int64)
+        order = np.argsort(-xs, kind="stable")
+        rows.append(_anchor(xs[order], ys[order]))
+    return rows
+
+
+def pad_rows(rows, N: int):
+    arr = np.zeros((len(rows), N), dtype=np.int64)
+    cnt = np.zeros((len(rows),), dtype=np.int32)
+    for k, r in enumerate(rows):
+        arr[k, : len(r)] = r
+        cnt[k] = len(r)
+    return arr, cnt
+
+
+def mutate(rng, seq, rate: float = 0.08):
+    out = seq.copy()
+    sub = rng.random(len(out)) < rate
+    out[sub] = (out[sub] + rng.integers(1, 4, int(sub.sum()))) % 4
+    return out.astype(np.uint8)
+
+
+def gap_items(rng, genome, n: int, near: bool):
+    """Gap-interval items: genome windows of 200-5,124 bases and read
+    windows of 200-4,096 from a mutated copy of the genome there, every
+    other item bounded to +-500 around the true diagonal; `near` puts the
+    windows' starts within 5 g_max of 2^30 and fills g_max and r_max."""
+    items = []
+    for t in range(n):
+        glen = 5120 if near else int(rng.integers(200, 5125))
+        rlen = 4096 if near else int(rng.integers(200, 4097))
+        gs = int(rng.integers(0, len(genome) - 10_000))
+        rs = gs + int(rng.integers(0, 100))
+        read = mutate(rng, genome[rs: rs + rlen + 500])
+        bounded = t % 2 == 1
+        items.append({"gwin": genome[gs: gs + glen + 8], "g_n": glen,
+                      "gpos0": (1 << 30) - 1500 - 700 * t if near else gs,
+                      "rwin": read[: rlen + 8], "r_n": rlen, "rpos0": 0,
+                      "rvcp": len(read) - 1,
+                      "a_lo": gs - rs - 500 if bounded else -(1 << 40),
+                      "a_hi": gs - rs + 500 if bounded else 1 << 40})
+    return items
+
+
+def band_pairs(rng, n: int):
+    """Query and reference pairs of 200-7,000 bases: the query a copy of
+    the reference with 10 % substitutions and a few short indels."""
+    qry, ref = [], []
+    for _ in range(n):
+        r = rng.integers(0, 4, int(rng.integers(200, 7001))).astype(np.uint8)
+        q = mutate(rng, r, 0.10)
+        for _ in range(int(rng.integers(0, 4))):
+            p = int(rng.integers(0, len(q)))
+            k = int(rng.integers(1, 6))
+            q = (np.delete(q, range(p, min(p + k, len(q))))
+                 if rng.random() < 0.5 else
+                 np.insert(q, p, rng.integers(0, 4, k).astype(np.uint8)))
+        qry.append(q[:7000])
+        ref.append(r)
+    return qry, ref
+
+
+def _digest(out) -> str:
+    h = hashlib.sha256()
+    for t in out if isinstance(out, (tuple, list)) else (out,):
+        h.update(t.detach().to("cpu").contiguous().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def cases(seed: int):
+    """(name, fn) for every case, the inputs on the card."""
+    import torch
+
+    from linear_tpu_torch.ops import align_pallas as AP
+    from linear_tpu_torch.ops import chain_dp as CD
+    from linear_tpu_torch.ops import gap_dev as GD
+
+    rng = np.random.default_rng(seed)
+    dev = "cuda"
+    arr, cnt = pad_rows(chain_rows(rng, 256, 65, 512, 7000), 512)
+    a512, c512 = torch.from_numpy(arr).to(dev), torch.from_numpy(cnt).to(dev)
+    arr, cnt = pad_rows(chain_rows(rng, 64, 513, 8192, 120_000), 8192)
+    a8k, c8k = torch.from_numpy(arr).to(dev), torch.from_numpy(cnt).to(dev)
+    out = [(f"chain_dp_windowed (256, 512) W {W}",
+            lambda W=W: CD.chain_dp_windowed(a512, c512, W=W))
+           for W in (1, 33, 64, 128)]
+    out += [("chain_dp (256, 512)", lambda: CD.chain_dp(a512, c512)),
+            ("chain_dp (64, 8192)", lambda: CD.chain_dp(a8k, c8k))]
+    genome = rng.integers(0, 4, 2_000_000).astype(np.uint8)
+    for n, near, tag in ((512, False, "512 items"),
+                         (16, True, "16 items near 2^30")):
+        packed = [torch.from_numpy(x).to(dev) for x in
+                  GD.pack_items(gap_items(rng, genome, n, near))]
+        out.append((f"gap_anchors {tag}",
+                    lambda p=packed: GD.gap_anchors(*p, 1024, 4096, 16, 2048)))
+    qry, ref = band_pairs(rng, 625)
+    for W in (100, 128, 600):
+        a, bpad, nm = (torch.from_numpy(x).to(dev)
+                       for x in AP.pack_pairs(qry, ref, W))
+        out.append((f"banded_align (625, {a.shape[1]}) W {W}",
+                    lambda a=a, b=bpad, m=nm, W=W: AP.banded_align(a, b, m, W)))
+    return out
+
+
+def time_ms(fn, iters: int) -> float:
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int) -> float:
+    """The card's busy time a call: the device events torch.profiler
+    traces over iters calls, after a warm one."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA)
+    return us / 1e3 / iters
+
+
+def run_here(seed: int, iters: int) -> dict:
+    """Every case in this process, on the package it imports."""
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_times needs a CUDA device")
+    import linear_tpu_torch
+    from linear_tpu_torch.ops import _cuda
+
+    _cuda.lib()
+    res = {"root": os.path.dirname(os.path.dirname(
+        os.path.abspath(linear_tpu_torch.__file__))), "cases": {}}
+    for name, fn in cases(seed):
+        try:
+            out = fn()
+        except ValueError as e:
+            res["cases"][name] = {"refused": str(e)[:120]}
+            continue
+        torch.cuda.synchronize()
+        n = max(1, iters // 10) if "8192" in name else iters
+        res["cases"][name] = {"ms": time_ms(fn, n),
+                              "device_ms": device_ms(fn, n),
+                              "sha": _digest(out)}
+    return res
+
+
+def _child(root: str, argv: list) -> subprocess.Popen:
+    env = dict(os.environ, PYTHONPATH=root)
+    return subprocess.Popen([sys.executable, os.path.abspath(__file__), *argv],
+                            cwd=root, env=env, stdout=subprocess.PIPE,
+                            text=True)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--roots", nargs="*", default=None)
+    ap.add_argument("--seed", type=int, default=8)
+    ap.add_argument("--iters", type=int, default=50)
+    ap.add_argument("--out", default=None)
+    ap.add_argument("--build-only", action="store_true")
+    args = ap.parse_args(argv)
+    if args.build_only:
+        from linear_tpu_torch.ops import _cuda
+
+        _cuda.build()
+        return 0
+    if not args.roots:
+        print(json.dumps(run_here(args.seed, args.iters)))
+        return 0
+    order = [os.path.abspath(r) for r in args.roots]
+    roots = list(dict.fromkeys(order))
+    builds = [_child(r, ["--build-only"]) for r in roots]
+    if any(p.wait() for p in builds):
+        raise SystemExit("a root's kernels did not build")
+    turns = []
+    for root in order + order[::-1]:
+        p = _child(root, ["--seed", str(args.seed), "--iters",
+                          str(args.iters)])
+        line = p.communicate()[0].strip().splitlines()[-1]
+        if p.returncode:
+            raise SystemExit(f"the turn of {root} failed")
+        print(line, flush=True)
+        turns.append(json.loads(line))
+    names = list(turns[0]["cases"])
+    for name in names:
+        print(name)
+        for root in roots:
+            cells = []
+            for t in turns:
+                if t["root"] != root:
+                    continue
+                c = t["cases"][name]
+                cells.append("refused" if "refused" in c else
+                             f"{c['ms']:.4f} ms (device {c['device_ms']:.4f}) "
+                             f"sha {c['sha']}")
+            print(f"  {os.path.basename(root)}: " + "; ".join(cells))
+    if args.out:
+        with open(args.out, "w") as fh:
+            json.dump(turns, fh, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

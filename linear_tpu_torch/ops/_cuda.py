@@ -108,8 +108,11 @@ def lib() -> ctypes.CDLL:
             dll = ctypes.CDLL(build())
             p, i64 = ctypes.c_void_p, ctypes.c_int64
             dll.lt_seed_superchunk.restype = ctypes.c_int
+            dll.lt_seed_superchunk_scratch_slots.restype = i64
+            dll.lt_seed_superchunk_scratch_slots.argtypes = [ctypes.c_int]
             dll.lt_seed_superchunk.argtypes = [
-                p, i64, i64, p, i64, p, i64, ctypes.c_int, ctypes.c_int, p, p]
+                p, i64, i64, p, i64, p, i64, ctypes.c_int, ctypes.c_int, p, p,
+                p, p]
             dll.lt_filter_extend.restype = ctypes.c_int
             dll.lt_filter_extend.argtypes = [
                 p, i64, i64, p, p, i64, p, p, p, p, i64, i64, i64,
@@ -122,13 +125,15 @@ def lib() -> ctypes.CDLL:
             dll.lt_devbuild.argtypes = [
                 p, p, p, p, p, p, i64, i64, i64, i64, p, p, p, p, p]
             dll.lt_chain_dp_windowed.restype = ctypes.c_int
+            dll.lt_chain_dp_windowed_scratch.restype = i64
+            dll.lt_chain_dp_windowed_scratch.argtypes = [i64, ctypes.c_int]
             dll.lt_chain_dp_windowed.argtypes = [
                 p, p, i64, i64, ctypes.c_int, i64, i64, ctypes.c_int,
-                p, p, p, p, p]
+                p, p, p, p, p, p]
             dll.lt_seed_anchors.restype = ctypes.c_int
             dll.lt_seed_anchors.argtypes = [
                 p, i64, i64, p, ctypes.c_int, ctypes.c_int, ctypes.c_int, i64,
-                p, i64, p, i64, ctypes.c_int, i64, i64, p, p, p, p, p, p]
+                p, i64, p, i64, ctypes.c_int, i64, i64, p, p, p, p]
             dll.lt_compact_anchors.restype = ctypes.c_int
             dll.lt_compact_anchors.argtypes = [
                 p, p, i64, i64, ctypes.c_int, p, p, p]
@@ -136,15 +141,22 @@ def lib() -> ctypes.CDLL:
             dll.lt_sort_anchors.argtypes = [
                 p, p, i64, i64, ctypes.c_int, ctypes.c_int, p, p, p, p, p, p]
             dll.lt_chain_dp_full.restype = ctypes.c_int
+            dll.lt_chain_dp_full_scratch.restype = i64
+            dll.lt_chain_dp_full_scratch.argtypes = [i64]
             dll.lt_chain_dp_full.argtypes = [
-                p, p, i64, i64, i64, i64, ctypes.c_int, p, p, p, p]
+                p, p, i64, i64, i64, i64, ctypes.c_int, p, p, p, p, p]
             dll.lt_banded_align.restype = ctypes.c_int
+            dll.lt_banded_align_scratch.restype = i64
+            dll.lt_banded_align_scratch.argtypes = [ctypes.c_int]
             dll.lt_banded_align.argtypes = [
-                p, p, p, i64, i64, ctypes.c_int, p, p]
+                p, p, p, i64, i64, ctypes.c_int, p, p, p]
             dll.lt_gap_anchors.restype = ctypes.c_int
+            dll.lt_gap_anchors_scratch_words.restype = i64
+            dll.lt_gap_anchors_scratch_words.argtypes = [
+                i64, ctypes.c_int, ctypes.c_int, ctypes.c_int]
             dll.lt_gap_anchors.argtypes = [
                 p, i64, p, p, p, i64, p, p, p, p, p, i64, ctypes.c_int,
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, p, p, p, p, p]
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, p, p, p, p, p, p]
             dll.lt_cuda_error_string.restype = ctypes.c_char_p
             dll.lt_cuda_error_string.argtypes = [ctypes.c_int]
             _LIB = dll
@@ -166,9 +178,8 @@ def seed_superchunk(wire: torch.Tensor, dir_start: torch.Tensor,
                     hs: torch.Tensor, cap: int, m_out: int) -> torch.Tensor:
     """Launch csrc/seed_superchunk.cu on PyTorch's current stream:
     wire (rows, pad/4 + 8) uint8 -> (rows, m_out + 1) int64. Does not
-    synchronise; raises if the launch is refused."""
-    from .seeding import MAX_M_OUT
-
+    synchronise; raises if the launch is refused. Any m_out >= 1: slots
+    past the kernel's 4,096 in shared memory go to a device scratch."""
     dev = wire.device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA seeding kernel needs CUDA tensors, got {dev}")
@@ -178,15 +189,22 @@ def seed_superchunk(wire: torch.Tensor, dir_start: torch.Tensor,
     rows, row_bytes = wire.shape
     if row_bytes <= 8:
         raise ValueError(f"wire rows of {row_bytes} bytes hold no bases")
-    if not 0 < m_out <= MAX_M_OUT:
-        raise ValueError(f"m_out {m_out} outside 1..{MAX_M_OUT}")
+    if not 0 < m_out < 1 << 31:
+        raise ValueError(f"m_out {m_out} outside 1..2^31 - 1")
     if dir_start.numel() < 2 or hs.numel() < 1:
         raise ValueError("empty index tables")
     out = torch.empty((rows, m_out + 1), dtype=torch.int64, device=dev)
-    _launch("seed_superchunk", dev, lib().lt_seed_superchunk,
+    dll = lib()
+    extra = rows * dll.lt_seed_superchunk_scratch_slots(int(m_out))
+    g_anc = (torch.empty((extra,), dtype=torch.int64, device=dev)
+             if extra else None)
+    g_keep = (torch.empty((extra,), dtype=torch.uint8, device=dev)
+              if extra else None)
+    _launch("seed_superchunk", dev, dll.lt_seed_superchunk,
             wire.data_ptr(), rows, row_bytes, dir_start.data_ptr(),
             dir_start.numel(), hs.data_ptr(), hs.numel(), int(cap), int(m_out),
-            out.data_ptr())
+            g_anc.data_ptr() if extra else None,
+            g_keep.data_ptr() if extra else None, out.data_ptr())
     return out
 
 
@@ -312,73 +330,87 @@ def chain_dp_windowed(anchors: torch.Tensor, n_anchors: torch.Tensor, W: int,
                       depth: int, dx_depth: int, score_type: int):
     """Launch csrc/chain_dp.cu: anchors (B, N) int64 sorted descending by
     anchor-x, n_anchors (B,) int32 -> (p2, score, length (B, N) int32,
-    overflow (B,) bool)."""
-    from .chain_dp import MAX_W
-
+    overflow (B,) bool). Any W >= 1: what of a read's ring, row table and
+    edge tiles passes the kernel's shared-memory budgets goes to a device
+    scratch (none at the Mapper's W 64 and N <= 8192)."""
     dev = _cuda_device(anchors, "chain DP")
     _check(anchors, "anchors", torch.int64, 2, dev)
     _check(n_anchors, "n_anchors", torch.int32, 1, dev)
     B, N = anchors.shape
     if n_anchors.shape[0] != B:
         raise ValueError("anchors and n_anchors differ in rows")
-    if not 1 <= W <= MAX_W or N < 1:
-        raise ValueError(f"W {W} outside 1..{MAX_W}, or no columns (N {N})")
+    if not (1 <= W < 1 << 31 and 1 <= N < 1 << 31):
+        raise ValueError(f"W {W} or N {N} outside 1..2^31 - 1")
     if score_type not in (0, 1):
         raise ValueError(f"score_type {score_type}: use 0 or 1")
     p2, score, length = (torch.empty((B, N), dtype=torch.int32, device=dev)
                          for _ in range(3))
     overflow = torch.empty((B,), dtype=torch.bool, device=dev)
-    _launch("chain_dp_windowed", dev, lib().lt_chain_dp_windowed,
+    dll = lib()
+    words = -(-dll.lt_chain_dp_windowed_scratch(N, int(W)) // 8)
+    scratch = (torch.empty((B * words,), dtype=torch.int64, device=dev)
+               if words else None)
+    _launch("chain_dp_windowed", dev, dll.lt_chain_dp_windowed,
             anchors.data_ptr(), n_anchors.data_ptr(), B, N, int(W), int(depth),
-            int(dx_depth), int(score_type), p2.data_ptr(), score.data_ptr(),
-            length.data_ptr(), overflow.data_ptr())
+            int(dx_depth), int(score_type),
+            scratch.data_ptr() if words else None, p2.data_ptr(),
+            score.data_ptr(), length.data_ptr(), overflow.data_ptr())
     return p2, score, length, overflow
 
 
 def chain_dp_full(anchors: torch.Tensor, n_anchors: torch.Tensor,
                   depth: int, dx_depth: int, score_type: int):
     """Launch the full DP of csrc/chain_dp.cu: anchors (B, N) int64,
-    n_anchors (B,) int32 -> (p2, score, length), each (B, N) int32."""
-    from .chain_dp import MAX_N_FULL
-
+    n_anchors (B,) int32 -> (p2, score, length), each (B, N) int32. Rows
+    wider than 11,622 anchors (20 bytes each in the 227 KB of shared memory
+    a block may take) keep them in a device scratch."""
     dev = _cuda_device(anchors, "chain DP")
     _check(anchors, "anchors", torch.int64, 2, dev)
     _check(n_anchors, "n_anchors", torch.int32, 1, dev)
     B, N = anchors.shape
     if n_anchors.shape[0] != B:
         raise ValueError("anchors and n_anchors differ in rows")
-    if not 1 <= N <= MAX_N_FULL:
-        raise ValueError(f"N {N} outside 1..{MAX_N_FULL}")
+    if not 1 <= N < 1 << 31:
+        raise ValueError(f"N {N} outside 1..2^31 - 1")
     if score_type not in (0, 1):
         raise ValueError(f"score_type {score_type}: use 0 or 1")
     p2, score, length = (torch.empty((B, N), dtype=torch.int32, device=dev)
                          for _ in range(3))
-    _launch("chain_dp_full", dev, lib().lt_chain_dp_full, anchors.data_ptr(),
+    dll = lib()
+    words = dll.lt_chain_dp_full_scratch(N) // 8
+    scratch = (torch.empty((B * words,), dtype=torch.int64, device=dev)
+               if words else None)
+    _launch("chain_dp_full", dev, dll.lt_chain_dp_full, anchors.data_ptr(),
             n_anchors.data_ptr(), B, N, int(depth), int(dx_depth),
-            int(score_type), p2.data_ptr(), score.data_ptr(),
-            length.data_ptr())
+            int(score_type), scratch.data_ptr() if words else None,
+            p2.data_ptr(), score.data_ptr(), length.data_ptr())
     return p2, score, length
 
 
 def banded_align(a: torch.Tensor, bpad: torch.Tensor, nm: torch.Tensor,
                  W: int) -> torch.Tensor:
     """Launch csrc/banded_align.cu: a (B, L) and bpad (B, L + 2W) uint8,
-    nm (B, 2) int32 -> scores (B,) int32."""
-    from .align_pallas import MAX_KW
-
+    nm (B, 2) int32 -> scores (B,) int32. Any W: past 1,024 diagonals a
+    thread owns several, and a pair's rows go to a device scratch when they
+    pass the shared-memory budget."""
     dev = _cuda_device(a, "banded alignment")
     _check(a, "a", torch.uint8, 2, dev)
     _check(bpad, "bpad", torch.uint8, 2, dev)
     _check(nm, "nm", torch.int32, 2, dev)
     B, L = a.shape
-    if not 1 <= 2 * W <= MAX_KW or L < 1:
-        raise ValueError(f"W {W} outside 1..{MAX_KW // 2}, or L {L} < 1")
+    if not 1 <= W <= 1 << 29 or L < 1:
+        raise ValueError(f"W {W} outside 1..2^29, or L {L} < 1")
     if bpad.shape != (B, L + 2 * W) or nm.shape != (B, 2):
         raise ValueError(f"bpad {tuple(bpad.shape)} or nm {tuple(nm.shape)} "
                          f"do not fit a {tuple(a.shape)} at W {W}")
     out = torch.empty((B,), dtype=torch.int32, device=dev)
-    _launch("banded_align", dev, lib().lt_banded_align, a.data_ptr(),
-            bpad.data_ptr(), nm.data_ptr(), B, L, int(W), out.data_ptr())
+    dll = lib()
+    ints = dll.lt_banded_align_scratch(int(W))
+    scratch = (torch.empty((B * ints,), dtype=torch.int32, device=dev)
+               if ints else None)
+    _launch("banded_align", dev, dll.lt_banded_align, a.data_ptr(),
+            bpad.data_ptr(), nm.data_ptr(), B, L, int(W),
+            scratch.data_ptr() if ints else None, out.data_ptr())
     return out
 
 
@@ -386,8 +418,11 @@ def gap_anchors(gseq, g_n, gpos0, rseq, r_n, rpos0, rvcp, a_lo, a_hi,
                 g_max: int, r_max: int, cap: int, m_out: int):
     """Launch csrc/gap_anchors.cu: genome windows gseq (B, GW) and read
     windows rseq (B, RW) uint8, the (B,) int64 item scalars -> (anchors,
-    keys (B, m_out) int64, count (B,) int32, overflow (B,) bool)."""
-    from .gap_dev import G_MAX_LIMIT, R_MAX_LIMIT, SHAPE_LEN
+    keys (B, m_out) int64, count (B,) int32, overflow (B,) bool). Past the
+    block-scan kernel's shared tables (g_max > 1024, r_max > 4096) the keyed
+    kernel takes every item, its blocks each with a part of a device
+    scratch; within them no scratch is needed."""
+    from .gap_dev import SHAPE_LEN
 
     dev = _cuda_device(gseq, "gap anchor")
     _check(gseq, "gseq", torch.uint8, 2, dev)
@@ -402,28 +437,28 @@ def gap_anchors(gseq, g_n, gpos0, rseq, r_n, rpos0, rvcp, a_lo, a_hi,
     if rseq.shape[0] != B:
         raise ValueError("gseq and rseq differ in rows")
     RW = rseq.shape[1]
-    if not (1 <= g_max <= G_MAX_LIMIT and 1 <= r_max <= R_MAX_LIMIT
-            and 1 <= cap and 1 <= m_out < 1 << 31):
-        raise ValueError(f"g_max {g_max} (1..{G_MAX_LIMIT}), r_max {r_max} "
-                         f"(1..{R_MAX_LIMIT}), cap {cap} or m_out {m_out} "
-                         "out of range")
+    if not (1 <= g_max < 1 << 28 and 1 <= r_max and 1 <= cap
+            and r_max * cap < 1 << 31 and 1 <= m_out < 1 << 31):
+        raise ValueError(f"g_max {g_max}, r_max {r_max}, cap {cap} or m_out "
+                         f"{m_out} out of range")
     if GW < SHAPE_LEN or RW < SHAPE_LEN:
         raise ValueError(f"windows of {GW} and {RW} bases hold no 9-mer")
-    # the kernel's emission order needs every genome entry's position below
-    # 2^30 (one check of the batch; it synchronises)
-    if bool(((gpos0 < 0) | (gpos0 > (1 << 30) - 5 * g_max)).any()):
-        raise ValueError("a genome window starts below 0 or past "
-                         f"2^30 - 5 g_max ({(1 << 30) - 5 * g_max})")
     out_a = torch.empty((B, m_out), dtype=torch.int64, device=dev)
     out_k = torch.empty((B, m_out), dtype=torch.int64, device=dev)
     count = torch.empty((B,), dtype=torch.int32, device=dev)
     overflow = torch.empty((B,), dtype=torch.bool, device=dev)
-    _launch("gap_anchors", dev, lib().lt_gap_anchors, gseq.data_ptr(), GW,
+    dll = lib()
+    words = dll.lt_gap_anchors_scratch_words(B, int(g_max), int(r_max),
+                                             int(cap))
+    scratch = (torch.empty((words,), dtype=torch.int64, device=dev)
+               if words else None)
+    _launch("gap_anchors", dev, dll.lt_gap_anchors, gseq.data_ptr(), GW,
             g_n.data_ptr(), gpos0.data_ptr(), rseq.data_ptr(), RW,
             r_n.data_ptr(), rpos0.data_ptr(), rvcp.data_ptr(),
             a_lo.data_ptr(), a_hi.data_ptr(), B, int(g_max), int(r_max),
-            int(cap), int(m_out), out_a.data_ptr(), out_k.data_ptr(),
-            count.data_ptr(), overflow.data_ptr())
+            int(cap), int(m_out), scratch.data_ptr() if words else None,
+            out_a.data_ptr(),
+            out_k.data_ptr(), count.data_ptr(), overflow.data_ptr())
     return out_a, out_k, count, overflow
 
 
@@ -454,13 +489,13 @@ def seed_anchors(seqs: torch.Tensor, lens: torch.Tensor,
     P = n_positions(L, thd_alpha)
     anc = torch.empty((B, P, cap), dtype=torch.int64, device=dev)
     keep = torch.empty((B, P, cap), dtype=torch.bool, device=dev)
-    st = [torch.empty((B, P) if scan else (0,), dtype=torch.int64, device=dev)
-          for _ in range(3)]
+    # K1's pre-pass: k0, the init window's crh share and the x bias a read
+    pre = torch.empty((3, B) if scan else (1,), dtype=torch.int64, device=dev)
     _launch("seed_anchors", dev, lib().lt_seed_anchors, seqs.data_ptr(), B,
             L, lens.data_ptr(), int(scan), SPAN + thd_alpha - 1, thd_alpha, P,
             dir_start.data_ptr(), dir_start.numel(), hs.data_ptr(),
-            hs.numel(), int(cap), int(x_base), int(x_hi),
-            *(t.data_ptr() for t in st), anc.data_ptr(), keep.data_ptr())
+            hs.numel(), int(cap), int(x_base), int(x_hi), pre.data_ptr(),
+            anc.data_ptr(), keep.data_ptr())
     return anc, keep
 
 

@@ -32,7 +32,6 @@ S_MATCH = 3      # src/align_interface.cpp:178
 S_MISMATCH = -2  # :179
 S_GAP = -1       # :180-181 (open == extend -> linear)
 NEG = -(1 << 28)
-MAX_KW = 1024    # the kernel's widest band (one thread a diagonal)
 Q_PAD, R_PAD = 7, 9
 
 # launches of the CUDA kernel by banded_align in this process

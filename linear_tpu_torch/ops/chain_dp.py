@@ -25,6 +25,9 @@ the add; every division truncates like C.
                                translation of linear_tpu's
                                batch_chain_dp_windowed: banded (B, N, W) edge
                                scores, then a scan with a (B, W) ring.
+  key_max, key_bits            the kernel's step in plain PyTorch: one max
+                               over key = total << bits | (d - 1) picks
+                               JAX's argmax (the tests hold it to JAX's).
   chain_dp                     the full DP (linear_tpu's batch_chain_dp):
                                JAX's mask over every j < i, any row order,
                                every column computed. CUDA tensors launch
@@ -60,9 +63,6 @@ MASK_X30 = (1 << 30) - 1
 VALUE_MASK_DSTR = ((1 << 60) - 1) | (1 << 61)
 NEG32 = -(2 ** 31) + 1  # the full DP's sentinel (JAX's NEG)
 NEG40 = -(1 << 40)      # the windowed ring's sentinel
-MAX_W = 64              # the kernel's lookback limit (two per lane)
-MAX_N_FULL = 11622      # the full kernel's widest row (20 B an anchor in
-                        # the 227 KB of shared memory a block may take)
 
 # launches of the CUDA kernels by chain_dp_windowed, chain_dp and
 # sort_anchors in this process
@@ -230,6 +230,24 @@ def chain_dp_windowed_reference(anchors: torch.Tensor, n_anchors: torch.Tensor,
     overflow = (((ax_far - ax) < thd_chain_dx_depth) & valid
                 & (jj[None, :] > W)).any(dim=1)
     return p2, scores, lens, overflow
+
+
+def key_bits(w: int) -> int:
+    """Bits of the index field d - 1 of the windowed kernel's key for a row
+    whose widest lookback is w."""
+    return max(w - 1, 0).bit_length()
+
+
+def key_max(tot: torch.Tensor, bits: int):
+    """The windowed kernel's step (csrc/chain_dp.cu): tot (B, w) int64,
+    column d - 1 the total of lookback d (0: no eligible edge with a
+    positive score) -> (best
+    total, its d), one max of key = total << bits | (d - 1): the largest
+    total, then the largest d, which is the smallest j = i - d, as JAX's
+    argmax picks. d is 1 where no lookback counts (total 0)."""
+    d = torch.arange(tot.shape[1], device=tot.device)
+    key = torch.where(tot > 0, (tot << bits) | d, 0).amax(1)
+    return key >> bits, (key & ((1 << bits) - 1)) + 1
 
 
 def chain_dp_windowed(anchors: torch.Tensor, n_anchors: torch.Tensor,

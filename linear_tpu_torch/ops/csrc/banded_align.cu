@@ -16,19 +16,26 @@
 // barriers; a pair of n query bases takes n such steps. The bytes are small
 // (each pair's codes are read once a row from L1, 4 bytes out).
 //
-// Design: one block a pair, one thread a diagonal k (KW = 2W threads,
-// rounded up to whole warps; KW <= 1024), all pairs in one launch and no
-// substitution tensor: thread k compares the query base of row i with the
-// reference base at j - 1 straight from the code arrays. The row's gap
-// chain r[k] = max over t <= k of (M[t] - (k - t)) is written as
-// (inclusive prefix max of M[t] + t) - k: a five-step shuffle scan in each
-// warp, then the warps' maxima through shared memory. Thread k keeps its
-// own cell of the previous row in a register (the diagonal move) and reads
-// its right neighbour's from shared memory (the move from above). Cells
-// outside 0 <= j <= m are NEG = -2^28 before and after the scan, as in JAX;
-// the two formulations of the prefix max differ only among cells near NEG,
-// which never reach the returned score. Rows past n are not run (in JAX
-// they do not evolve).
+// Design: one block a pair, all pairs in one launch and no substitution
+// tensor: a thread compares the query base of row i with the reference base
+// at j - 1 straight from the code arrays. The block has min(KW, 1024)
+// threads, rounded up to whole warps, and each owns c = ceil(KW / threads)
+// consecutive diagonals (c = 1 up to KW = 1024). The row's gap chain r[k] =
+// max over t <= k of (M[t] - (k - t)) is written as (inclusive prefix max of
+// M[t] + t) - k: a thread takes the running max of v + k over its
+// diagonals, a five-step shuffle scan in each warp and the warps' maxima
+// through shared memory give the max of the diagonals before it, and a
+// second pass over its diagonals writes max(carry, running max) - k. The
+// previous row (KW + 1 ints, a sentinel at KW) sits in dynamic shared
+// memory, or past its budget in the pair's part of a device scratch;
+// diagonal k reads its own cell (the diagonal move) and its right
+// neighbour's (the move from above). At c = 1 (a specialisation of the
+// kernel) the row is always in shared memory and a thread keeps its own
+// cell and candidate in registers; above, the row's candidates (KW ints)
+// follow the row. Cells outside 0 <= j <= m are NEG = -2^28 before and
+// after the scan, as in JAX; the two formulations of the prefix max differ
+// only among cells near NEG, which never reach the returned score. Rows
+// past n are not run (in JAX they do not evolve).
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -39,7 +46,8 @@ constexpr int kNeg = -(1 << 28);
 constexpr int kMatch = 3;
 constexpr int kMismatch = -2;
 constexpr int kGap = -1;
-constexpr int kMaxKW = 1024;
+constexpr int kMaxThreads = 1024;
+constexpr int64_t kSmemBudget = 200 * 1024;  // the rows in shared memory
 
 __device__ __forceinline__ int warp_max(int v) {
 #pragma unroll
@@ -48,59 +56,96 @@ __device__ __forceinline__ int warp_max(int v) {
   return v;
 }
 
-__global__ void __launch_bounds__(kMaxKW)
+// kOne: KW <= 1024, one diagonal a thread (c = 1), the row always in shared
+// memory and the thread's own cell and candidate in registers; else c from
+// the block size, the rows in shared memory or the scratch.
+template <bool kOne>
+__global__ void __launch_bounds__(kMaxThreads)
     banded_align_kernel(const uint8_t* __restrict__ a,
                         const uint8_t* __restrict__ bpad,
                         const int32_t* __restrict__ nm, int64_t L, int W,
-                        int32_t* __restrict__ out) {
-  __shared__ int row_sh[kMaxKW + 1];
+                        int* scratch, int32_t* __restrict__ out) {
+  extern __shared__ int band_sh[];
   __shared__ int warp_sh[32];
   const int KW = 2 * W;
-  const int k = threadIdx.x;
-  const int lane = k & 31;
-  const int warp = k >> 5;
+  const int c = kOne ? 1 : (KW + blockDim.x - 1) / blockDim.x;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
   const int nwarps = blockDim.x >> 5;
   const int64_t b = blockIdx.x;
+  // the pair's rows (band_ints): the row, and past it at c > 1 the row's
+  // candidates
+  int* row = kOne || !scratch ? band_sh : scratch + b * (2 * (int64_t)KW + 1);
+  int* vb = row + KW + 1;  // c > 1 only
   const uint8_t* q = a + b * L;
   const uint8_t* r = bpad + b * (L + KW);
   const int64_t n = min((int64_t)nm[2 * b], L);
   const int64_t m = nm[2 * b + 1];
-  const bool lane_ok = k < KW;
-  // row 0: H[0][j] = 0 for 0 <= j <= m
-  int64_t j = (int64_t)k - W;
-  int prev = (lane_ok && j >= 0 && j <= m) ? 0 : kNeg;
-  row_sh[k] = prev;
-  if (k == 0) row_sh[KW] = kNeg;  // the lane right of the band
+  const int k0 = tid * c;
+  const int k1 = min(k0 + c, KW);
+  for (int k = k0; k < k1; ++k) {  // row 0: H[0][j] = 0 for 0 <= j <= m
+    const int64_t j = (int64_t)k - W;
+    row[k] = (j >= 0 && j <= m) ? 0 : kNeg;
+  }
+  if (tid == 0) row[KW] = kNeg;  // the lane right of the band
   int best = 0;
+  int prev = kOne && k0 < KW ? row[k0] : kNeg;  // c = 1: its cell of row i - 1
   for (int64_t i = 1; i <= n; ++i) {
-    __syncthreads();  // row i - 1 is in row_sh
-    j = i + k - W;
-    const bool out_of_band = !lane_ok || j < 0 || j > m;
-    int v = kNeg;
-    if (!out_of_band) {
-      if (j == 0) {
-        v = 0;
-      } else {
-        const int up = row_sh[k + 1];
-        const int sub = q[i - 1] == r[i - 1 + k] ? kMatch : kMismatch;
-        v = max(prev + sub, up + kGap);
+    __syncthreads();  // row i - 1 is in row
+    // the candidate of diagonal k (kNeg outside the band) from its own cell
+    // of row i - 1
+    auto cand = [&](int k, int diag) {
+      const int64_t j = i + k - W;
+      if (k >= KW || j < 0 || j > m) return kNeg;
+      if (j == 0) return 0;
+      const int sub = q[i - 1] == r[i - 1 + k] ? kMatch : kMismatch;
+      return max(diag + sub, row[k + 1] + kGap);
+    };
+    // diagonal k's cell from the prefix max of v + t through it
+    auto put = [&](int k, int through) {
+      const int64_t j = i + k - W;
+      const int cell = (k >= KW || j < 0 || j > m) ? kNeg : through - k;
+      if (j == m || i == n) best = max(best, cell);
+      if (k < KW) row[k] = cell;
+      return cell;
+    };
+    // c = 1 runs straight-line code: a loop over the one diagonal measured
+    // 1.7 times slower on the H100 (kernel_times.py, W 100)
+    int run;
+    if (kOne) {
+      run = cand(k0, prev) + k0;
+    } else {
+      run = kNeg - 1;  // below every v + k
+      for (int k = k0; k < k1; ++k) {
+        vb[k] = cand(k, row[k]);
+        run = max(run, vb[k] + k);
       }
     }
-    // inclusive prefix max of v + k over the band
-    int s = v + k;
+    // the max of run over the threads before this one
+    int s = run;
 #pragma unroll
     for (int off = 1; off < 32; off <<= 1) {
       const int o = __shfl_up_sync(0xffffffffu, s, off);
       if (lane >= off) s = max(s, o);
     }
+    int carry = s;  // c = 1: s already holds this thread's diagonal
+    if (!kOne) {
+      carry = __shfl_up_sync(0xffffffffu, s, 1);
+      if (lane == 0) carry = kNeg - 1;
+    }
     if (lane == 31) warp_sh[warp] = s;
-    __syncthreads();  // every thread has read row_sh; warp maxima are in
-    int carry = lane < warp ? warp_sh[lane] : kNeg;
-    if (nwarps > 1) carry = warp_max(carry);
-    const int cell = out_of_band ? kNeg : max(s, carry) - k;
-    if (j == m || i == n) best = max(best, cell);
-    prev = cell;
-    row_sh[k] = cell;
+    __syncthreads();  // every thread has read row; warp maxima are in
+    if (nwarps > 1)
+      carry = max(carry, warp_max(lane < warp ? warp_sh[lane] : kNeg - 1));
+    if (kOne) {
+      prev = put(k0, carry);
+    } else {
+      for (int k = k0; k < k1; ++k) {
+        carry = max(carry, vb[k] + k);
+        put(k, carry);
+      }
+    }
   }
   // the pair's best over the block
   best = warp_max(best);
@@ -108,27 +153,54 @@ __global__ void __launch_bounds__(kMaxKW)
   if (lane == 0) warp_sh[warp] = best;
   __syncthreads();
   if (warp == 0) {
-    int v = lane < nwarps ? warp_sh[lane] : 0;
-    v = warp_max(v);
+    const int v = warp_max(lane < nwarps ? warp_sh[lane] : 0);
     if (lane == 0) out[b] = v;
   }
+}
+
+// Ints a pair's rows take: KW + 1 (the row) at KW = 2W <= 1024, where a
+// thread holds its one diagonal's candidate in a register, else 2 KW + 1.
+int64_t band_ints(int W) {
+  const int64_t KW = 2 * (int64_t)W;
+  return KW <= kMaxThreads ? KW + 1 : 2 * KW + 1;
 }
 
 }  // namespace
 
 extern "C" {
 
+// Scratch ints a pair needs at W: 0 while its rows fit the shared memory a
+// block may take, else band_ints(W).
+int64_t lt_banded_align_scratch(int W) {
+  return band_ints(W) * 4 > kSmemBudget ? band_ints(W) : 0;
+}
+
 // Launches the kernel on `stream`: a (B, L) and bpad (B, L + 2W) uint8
-// codes (the reference at column W), nm (B, 2) int32 true lengths; out (B,)
-// int32. 1 <= 2W <= 1024. Returns the cudaError_t of the launch.
+// codes (the reference at column W), nm (B, 2) int32 true lengths; W >= 1;
+// scratch B * lt_banded_align_scratch(W) ints (null when that is 0); out
+// (B,) int32. Returns the cudaError_t of the launch.
 int lt_banded_align(const uint8_t* a, const uint8_t* bpad, const int32_t* nm,
-                    int64_t B, int64_t L, int W, int32_t* out, void* stream) {
+                    int64_t B, int64_t L, int W, int* scratch, int32_t* out,
+                    void* stream) {
   if (B <= 0) return (int)cudaSuccess;
-  if (W < 1 || 2 * W > kMaxKW || L < 1 || B > 0x7fffffff)
+  if (W < 1 || W > (1 << 29) || L < 1 || B > 0x7fffffff ||
+      (lt_banded_align_scratch(W) > 0) != (scratch != nullptr))
     return (int)cudaErrorInvalidValue;
-  const int threads = (2 * W + 31) / 32 * 32;
-  banded_align_kernel<<<(unsigned)B, threads, 0, (cudaStream_t)stream>>>(
-      a, bpad, nm, L, W, out);
+  cudaStream_t st = (cudaStream_t)stream;
+  const size_t smem = scratch ? 0 : (size_t)band_ints(W) * sizeof(int);
+  if (2 * W <= kMaxThreads) {
+    banded_align_kernel<true><<<(unsigned)B, (2 * W + 31) / 32 * 32, smem,
+                                st>>>(a, bpad, nm, L, W, nullptr, out);
+    return (int)cudaGetLastError();
+  }
+  if (smem > 48 * 1024) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        banded_align_kernel<false>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (rc != cudaSuccess) return (int)rc;
+  }
+  banded_align_kernel<false><<<(unsigned)B, kMaxThreads, smem, st>>>(
+      a, bpad, nm, L, W, scratch, out);
   return (int)cudaGetLastError();
 }
 

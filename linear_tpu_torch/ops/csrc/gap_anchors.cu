@@ -17,7 +17,7 @@
 // candidate pairs, each a few barriers deep; the bytes (the windows in,
 // 16 bytes a kept anchor out) are small. Items are independent.
 //
-// Design: one block an item, its tables in shared memory (~33 KB):
+// Design: one block an item, its tables in shared memory (~35 KB):
 //   1. the genome entries val<<33 | std<<30 | pos of the samples
 //      (g_max <= 1024) and the read keys val<<14 | std<<13 | rel of the
 //      read positions (r_max <= 4096) are computed and bitonic-sorted;
@@ -32,9 +32,15 @@
 //      the emission key's order, and no 65,536-slot argsort is needed: the
 //      threads walk the pairs in that order, 256 at a time, compute anchor
 //      and keep flag, and a block scan of the flags places each kept anchor.
-// The order argument needs gpos0 + 5 g_max <= 2^30 (no carry into the std
-// bit of a genome entry); the wrapper checks it. Slots past the kept
-// anchors hold anchor 0 and key 1 << 62.
+// The order argument needs 0 <= gpos0 <= 2^30 - 5 g_max (no carry into
+// the std bit of a genome entry). On other items the walk ranks the kept
+// pairs by JAX's emission key itself: each round of 256 pairs is merged by
+// key into the item's output row, which keeps the first m_out. Within the
+// tables the key's low 27 bits are (g_rel mod 2^13 = the sample's offset,
+// r_std, r_rel), so no two kept pairs share a key and the order needs no
+// tie-break. When g_max > 1024 or r_max > 4096 (past the shared tables)
+// every item takes the keyed kernel at the end of this file. Slots past the
+// kept anchors hold anchor 0 and key 1 << 62.
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -125,6 +131,75 @@ __device__ __forceinline__ int lower_bound(const T* x, int n, uint64_t v) {
   return l;
 }
 
+// the number of x[0..n) below v, or at most v (x ascending as signed keys)
+__device__ __forceinline__ int count_below(const int64_t* x, int n, int64_t v,
+                                           bool or_equal) {
+  int l = 0, h = n;
+  while (l < h) {
+    const int mid = (l + h) >> 1;
+    if (x[mid] < v || (or_equal && x[mid] == v)) l = mid + 1;
+    else h = mid;
+  }
+  return l;
+}
+
+// an item whose genome entries may carry into the std bit (a window start
+// below 0 or past 2^30 - 5 g_max): the block-scan order is not the
+// emission key's there, so its kept pairs are merged by key
+__device__ __forceinline__ bool keyed_item(int64_t gpos0, int g_max) {
+  return gpos0 < 0 || gpos0 > (1ll << 30) - 5ll * g_max;
+}
+
+// Merges a round's kept pairs (keep, its place pos among the round's n_kept)
+// into the first `cur` entries of an output row sorted by key, keeping the
+// first m_out. ck holds kThreads int64 of shared memory. A pair's place is
+// its rank in the round plus the row's keys up to it; the row's entries
+// move up by the round's keys below them, from the top down a block of them
+// at a time, so no entry is overwritten before it is read. (Kept keys are
+// distinct where the output counts; equal ones, which only an overflowing
+// item can hold, still take distinct places: the row's first, then the
+// round's in round order.)
+// (Not inlined: the walk of the usual items stays as lean as without it.)
+__device__ __noinline__ void merge_round(bool keep, int pos, int n_kept,
+                                         int64_t anchor, int64_t key, int cur,
+                                         int m_out, int64_t* oa, int64_t* ok,
+                                         int64_t* ck) {
+  if (keep) ck[pos] = key;
+  __syncthreads();
+  int dst = 0;
+  if (keep) {
+    int rank = 0;
+    for (int t = 0; t < n_kept; ++t)
+      rank += ck[t] < key || (ck[t] == key && t < pos) ? 1 : 0;
+    dst = rank + count_below(ok, cur, key, true);
+    pos = rank;
+  }
+  __syncthreads();
+  if (keep) ck[pos] = key;  // the round in key order
+  __syncthreads();
+  for (int top = cur; top > 0; top -= kThreads) {
+    const int j = top - kThreads + (int)threadIdx.x;
+    int64_t a = 0, k = 0;
+    int to = m_out;
+    if (j >= 0) {
+      a = oa[j];
+      k = ok[j];
+      to = j + count_below(ck, n_kept, k, false);
+    }
+    __syncthreads();
+    if (to < m_out) {
+      oa[to] = a;
+      ok[to] = k;
+    }
+    __syncthreads();
+  }
+  if (keep && dst < m_out) {
+    oa[dst] = anchor;
+    ok[dst] = key;
+  }
+  __syncthreads();
+}
+
 __global__ void __launch_bounds__(kThreads)
     gap_anchors_kernel(const uint8_t* __restrict__ gseq, int64_t GW,
                        const int64_t* __restrict__ g_n_,
@@ -142,12 +217,14 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ uint32_t r_key[kRMax];
   __shared__ int pstart[kGMax];
   __shared__ int rlo[kGMax];
+  __shared__ int64_t round_k[kThreads];
   __shared__ int tmp[kWarps];
   __shared__ int vmax_sh, ovf_sh;
   const int64_t b = blockIdx.x;
   const uint8_t* gs = gseq + b * GW;
   const uint8_t* rs = rseq + b * RW;
   const int64_t g_n = g_n_[b], gpos0 = gpos0_[b];
+  const bool keyed = keyed_item(gpos0, g_max);  // block-uniform
   const int64_t r_n = r_n_[b], rpos0 = rpos0_[b], rvcp = rvcp_[b];
   const int64_t a_lo = a_lo_[b], a_hi = a_hi_[b];
   const int64_t gpos_last = GW - kSpan, rpos_last = RW - kSpan;
@@ -192,12 +269,14 @@ __global__ void __launch_bounds__(kThreads)
   // per genome entry: its group, its run of read keys, its pair count
   for (int gi = threadIdx.x; gi < kGMax; gi += kThreads) {
     int np = 0;
-    if (gi < ng) {
-      const uint64_t val = (uint64_t)g_key[gi] >> 33;
-      const int glo = lower_bound(g_key, ng, val << 33);
-      const int ghi = lower_bound(g_key, ng, (val + 1) << 33);
-      const int rl = lower_bound(r_key, nr, val << 14);
-      const int rh = lower_bound(r_key, nr, (val + 1) << 14);
+    // (an entry below 0, a window start below 0 borrowing from val 0,
+    // is in no read's val range: JAX's signed searchsorted)
+    if (gi < ng && g_key[gi] >= 0) {
+      const int64_t val = g_key[gi] >> 33;
+      const int glo = count_below(g_key, ng, val << 33, false);
+      const int ghi = count_below(g_key, ng, (val + 1) << 33, false);
+      const int rl = lower_bound(r_key, nr, (uint64_t)val << 14);
+      const int rh = lower_bound(r_key, nr, (uint64_t)(val + 1) << 14);
       if (ghi - glo > cap && rh > rl) ovf_sh = 1;
       np = gi - glo < cap ? rh - rl : 0;
       rlo[gi] = rl;
@@ -222,7 +301,7 @@ __global__ void __launch_bounds__(kThreads)
     run += loc[u];
   }
   __syncthreads();
-  // walk the pairs in emission order
+  // walk the pairs in emission order (keyed: merge each round by key)
   int kept = 0;
   for (int base = 0; base < n_pairs; base += kThreads) {
     const int p = base + threadIdx.x;
@@ -251,10 +330,13 @@ __global__ void __launch_bounds__(kThreads)
             | (((hs1 & kMask3) - gpos0) << 14) | (rstd << 13) | rrel;
     }
     int n_kept;
-    const int pos = kept + block_excl_scan(keep ? 1 : 0, tmp, &n_kept);
-    if (keep && pos < m_out) {
-      out_a[b * m_out + pos] = anchor;
-      out_k[b * m_out + pos] = key;
+    const int pos = block_excl_scan(keep ? 1 : 0, tmp, &n_kept);
+    if (keyed) {
+      merge_round(keep, pos, n_kept, anchor, key, min(kept, m_out), m_out,
+                  out_a + b * m_out, out_k + b * m_out, round_k);
+    } else if (keep && kept + pos < m_out) {
+      out_a[b * m_out + kept + pos] = anchor;
+      out_k[b * m_out + kept + pos] = key;
     }
     kept += n_kept;
   }
@@ -269,29 +351,204 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// Past the shared-memory tables (g_max > 1024 or r_max > 4096) every item
+// takes this kernel. It follows JAX's steps: the sorted genome entries, a
+// searchsorted per read 9-mer, the first cap entries of its val group,
+// g_hs_set_anchor, and JAX's 46-bit emission key of each kept pair, in its
+// int64 arithmetic (its fields may overlap there, as in JAX). The kept
+// pairs go to the scratch in any order and a bitonic sort by (key, flat
+// pair index r * cap + c), the stable argsort's order, ranks them. A block
+// walks items b, b + gridDim.x, ... with its own part of the scratch:
+// G + 2 P int64 and P int32, G and P the powers of two over g_max and
+// r_max * cap.
+__device__ __forceinline__ bool pair_less(int64_t ka, int fa, int64_t kb,
+                                          int fb) {
+  return ka < kb || (ka == kb && fa < fb);
+}
+
+__global__ void __launch_bounds__(kThreads)
+    gap_anchors_keyed_kernel(const uint8_t* __restrict__ gseq, int64_t GW,
+                             const int64_t* __restrict__ g_n_,
+                             const int64_t* __restrict__ gpos0_,
+                             const uint8_t* __restrict__ rseq, int64_t RW,
+                             const int64_t* __restrict__ r_n_,
+                             const int64_t* __restrict__ rpos0_,
+                             const int64_t* __restrict__ rvcp_,
+                             const int64_t* __restrict__ a_lo_,
+                             const int64_t* __restrict__ a_hi_, int64_t B,
+                             int g_max, int r_max, int cap, int m_out,
+                             int64_t G, int64_t P,
+                             int64_t* scratch, int64_t* out_a,
+                             int64_t* out_k, int32_t* count_out,
+                             bool* overflow_out) {
+  __shared__ int vmax_sh, ovf_sh, kept_sh;
+  int64_t* gsort = scratch + (int64_t)blockIdx.x * (G + 2 * P + P / 2 + 1);
+  int64_t* keys = gsort + G;
+  int64_t* anc = keys + P;
+  int* flat = reinterpret_cast<int*>(anc + P);
+  for (int64_t b = blockIdx.x; b < B; b += gridDim.x) {
+    const int64_t g_n = g_n_[b], gpos0 = gpos0_[b];
+    const uint8_t* gs = gseq + b * GW;
+    const uint8_t* rs = rseq + b * RW;
+    const int64_t r_n = r_n_[b], rpos0 = rpos0_[b], rvcp = rvcp_[b];
+    const int64_t a_lo = a_lo_[b], a_hi = a_hi_[b];
+    const int ng = (int)min((int64_t)g_max, (g_n < 0 ? 0 : g_n) / 5);
+    const int nr = (int)min((int64_t)r_max, r_n < 0 ? 0 : r_n);
+    if (threadIdx.x == 0) {
+      vmax_sh = -1;
+      ovf_sh = 0;
+      kept_sh = 0;
+    }
+    __syncthreads();
+    int vmax = -1;
+    for (int64_t t = threadIdx.x; t < G; t += kThreads) {
+      int64_t e = kInvalid;
+      if (t < ng) {
+        const int64_t p = 4 + 5 * t;
+        int64_t v, st;
+        kmer(gs, min(p, GW - kSpan), &v, &st);
+        e = (v << 33) + (st << 30) + (gpos0 + p);
+        vmax = max(vmax, (int)v);
+      }
+      gsort[t] = e;
+    }
+    for (int r = threadIdx.x; r < nr; r += kThreads) {
+      int64_t v, st;
+      kmer(rs, min((int64_t)r, RW - kSpan), &v, &st);
+      vmax = max(vmax, (int)v);
+    }
+    atomicMax(&vmax_sh, vmax);
+    __syncthreads();
+    bitonic_sort(gsort, (int)G);
+    vmax = vmax_sh;
+    for (int r = threadIdx.x; r < nr; r += kThreads) {
+      int64_t rv, rstd;
+      kmer(rs, min((int64_t)r, RW - kSpan), &rv, &rstd);
+      const int lo = count_below(gsort, ng, rv << 33, false);
+      const int hi = count_below(gsort, ng, (rv + 1) << 33, false);
+      if (hi - lo > cap) ovf_sh = 1;
+      const int64_t hs2 = (rv << 33) + (1ll << 31) + (rstd << 30) + (rpos0 + r);
+      for (int c = 0; c < hi - lo && c < cap; ++c) {
+        const int64_t hs1 = gsort[lo + c];
+        // g_hs_set_anchor (src/gap_util.cpp:548)
+        const int64_t std_ = ((hs1 ^ hs2) >> 30) & 1;
+        const int64_t nsg = 2 * std_ - 1;
+        const int64_t xx = rvcp * std_ - nsg * (hs2 & kMask3);
+        const int64_t anchor =
+            (((hs1 + kZero - xx) & kMask3) << 20) + xx + (std_ << 50);
+        const int64_t t = ((anchor >> 20) & kMask5) - kZero;
+        if (t >= a_lo && t < a_hi && rv < vmax) {
+          const int slot = atomicAdd(&kept_sh, 1);
+          keys[slot] = (rv << 28) | (((hs1 >> 30) & 1) << 27) |
+                       (((hs1 & kMask3) - gpos0) << 14) | (rstd << 13) | r;
+          anc[slot] = anchor;
+          flat[slot] = r * cap + c;
+        }
+      }
+    }
+    __syncthreads();
+    const int kept = kept_sh;
+    int n2 = 1;
+    while (n2 < kept) n2 <<= 1;
+    for (int s = kept + threadIdx.x; s < n2; s += kThreads) {
+      keys[s] = INT64_MAX;
+      flat[s] = 0x7fffffff;
+      anc[s] = 0;
+    }
+    __syncthreads();
+    for (int k = 2; k <= n2; k <<= 1) {  // ascending by (key, flat)
+      for (int j = k >> 1; j > 0; j >>= 1) {
+        for (int i = threadIdx.x; i < n2; i += kThreads) {
+          const int ixj = i ^ j;
+          if (ixj > i &&
+              pair_less(keys[ixj], flat[ixj], keys[i], flat[i]) ==
+                  ((i & k) == 0)) {
+            const int64_t tk = keys[i], ta = anc[i];
+            const int tf = flat[i];
+            keys[i] = keys[ixj];
+            anc[i] = anc[ixj];
+            flat[i] = flat[ixj];
+            keys[ixj] = tk;
+            anc[ixj] = ta;
+            flat[ixj] = tf;
+          }
+        }
+        __syncthreads();
+      }
+    }
+    for (int s = threadIdx.x; s < m_out; s += kThreads) {
+      out_a[b * m_out + s] = s < kept ? anc[s] : 0;
+      out_k[b * m_out + s] = s < kept ? keys[s] : kInvalid;
+    }
+    if (threadIdx.x == 0) {
+      count_out[b] = kept;
+      overflow_out[b] = ovf_sh || kept > m_out || g_n > 5ll * g_max + 4 ||
+                        r_n > r_max;
+    }
+    __syncthreads();  // the shared flags and the scratch serve the next item
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
-// Launches the kernel on `stream`: genome windows gseq (B, GW) and read
-// windows rseq (B, RW) uint8, the (B,) int64 item scalars; 1 <= g_max <=
-// 1024, 1 <= r_max <= 4096. Outputs anchors and keys (B, m_out) int64,
-// count (B,) int32, overflow (B,) bool. Returns the cudaError_t of the
-// launch.
+// The keyed kernel's blocks: at most kKeyedBlocks, each with its part of the
+// scratch, G + 2 P + P / 2 + 1 int64 words (G, P the powers of two over g_max
+// and r_max * cap).
+constexpr int64_t kKeyedBlocks = 32;
+
+static bool past_tables(int g_max, int r_max) {
+  return g_max > kGMax || r_max > kRMax;
+}
+
+// Scratch words a launch of B items needs: 0 within the shared tables,
+// else the keyed kernel's blocks' parts.
+int64_t lt_gap_anchors_scratch_words(int64_t B, int g_max, int r_max,
+                                     int cap) {
+  if (!past_tables(g_max, r_max) || B <= 0) return 0;
+  int64_t G = 1, P = 1;
+  while (G < g_max) G <<= 1;
+  while (P < (int64_t)r_max * cap) P <<= 1;
+  return (B < kKeyedBlocks ? B : kKeyedBlocks) * (G + 2 * P + P / 2 + 1);
+}
+
+// Launches a kernel on `stream`: genome windows gseq (B, GW) and read
+// windows rseq (B, RW) uint8, the (B,) int64 item scalars; g_max, r_max,
+// cap, m_out >= 1, r_max * cap < 2^31; scratch holds
+// lt_gap_anchors_scratch_words(B, g_max, r_max, cap) int64 (null when that
+// is 0). Within the shared-memory tables (g_max <= 1024, r_max <= 4096) the
+// block-scan kernel takes every item; past them the keyed kernel does.
+// Outputs anchors and keys (B, m_out) int64, count (B,) int32, overflow
+// (B,) bool. Returns the cudaError_t of the launch.
 int lt_gap_anchors(const uint8_t* gseq, int64_t GW, const int64_t* g_n,
                    const int64_t* gpos0, const uint8_t* rseq, int64_t RW,
                    const int64_t* r_n, const int64_t* rpos0,
                    const int64_t* rvcp, const int64_t* a_lo,
                    const int64_t* a_hi, int64_t B, int g_max, int r_max,
-                   int cap, int m_out, int64_t* out_a, int64_t* out_k,
-                   int32_t* count, bool* overflow, void* stream) {
+                   int cap, int m_out, int64_t* scratch, int64_t* out_a,
+                   int64_t* out_k, int32_t* count, bool* overflow,
+                   void* stream) {
   if (B <= 0) return (int)cudaSuccess;
-  if (g_max < 1 || g_max > kGMax || r_max < 1 || r_max > kRMax || cap < 1 ||
-      m_out < 1 || GW < kSpan || RW < kSpan || B > 0x7fffffff)
+  if (g_max < 1 || r_max < 1 || cap < 1 || (int64_t)r_max * cap >= (1ll << 31)
+      || m_out < 1 || GW < kSpan || RW < kSpan || B > 0x7fffffff ||
+      (lt_gap_anchors_scratch_words(B, g_max, r_max, cap) > 0) !=
+          (scratch != nullptr))
     return (int)cudaErrorInvalidValue;
-  gap_anchors_kernel<<<(unsigned)B, kThreads, 0, (cudaStream_t)stream>>>(
-      gseq, GW, g_n, gpos0, rseq, RW, r_n, rpos0, rvcp, a_lo, a_hi, g_max,
-      r_max, cap, m_out, out_a, out_k, count, overflow);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (!past_tables(g_max, r_max)) {
+    gap_anchors_kernel<<<(unsigned)B, kThreads, 0, st>>>(
+        gseq, GW, g_n, gpos0, rseq, RW, r_n, rpos0, rvcp, a_lo, a_hi, g_max,
+        r_max, cap, m_out, out_a, out_k, count, overflow);
+    return (int)cudaGetLastError();
+  }
+  int64_t G = 1, P = 1;
+  while (G < g_max) G <<= 1;
+  while (P < (int64_t)r_max * cap) P <<= 1;
+  gap_anchors_keyed_kernel<<<(unsigned)(B < kKeyedBlocks ? B : kKeyedBlocks),
+                             kThreads, 0, st>>>(
+      gseq, GW, g_n, gpos0, rseq, RW, r_n, rpos0, rvcp, a_lo, a_hi, B, g_max,
+      r_max, cap, m_out, G, P, scratch, out_a, out_k, count, overflow);
   return (int)cudaGetLastError();
 }
 

@@ -23,17 +23,24 @@
 // YValue bases) is small.
 //
 // Design:
-//   K1 phase A: one thread per read rolls the scan serially (its state
-//      depends on every earlier base through the N carries) up to the
-//      read's last in-range call and writes h, crh, x at the call positions
-//      to a (B, P) scratch.
-//   K1 phase B and K2: one block per (read, tile of kTile positions). The
+//   K1 has no serial roll (rolled by a thread a read, it reached 9 % of
+//      its bound). The roll's state after any step depends on the last 21
+//      appended bases only: the mask drops older bits of h, crh shifts
+//      them off, and x telescopes to a window sum plus a per-read bias.
+//      What no window holds is per read: k0 (hashInit's first N-free
+//      window), the init window's share of crh while k < 41, and the x
+//      bias. A pre-pass, one warp a read, finds k0 by ballot and writes
+//      those three to a (3, B) scratch; every call position then has a
+//      closed form over a few dozen bases, exact with N bases
+//      (seeding.py:_scan_states_closed, held against JAX's scan).
+//   K1 and K2: one block per (read, tile of kTile positions). The
 //      first kTile + 1 threads each compute one position (the tile's
 //      positions and the one before them, for the dedup): xval, yval and
-//      strand from the scratch states (K1) or from the closed form (K2),
-//      then the bucket bounds. Then all threads walk the tile's kTile * cap
-//      slots in flat order, so that the big (B, P, cap) writes are
-//      coalesced, and each probes one hs entry.
+//      strand from the pre-pass and the closed form (K1) or from K2's
+//      closed form (exact for N-free reads), then the bucket bounds.
+//      Then all threads walk the tile's kTile * cap slots in flat order,
+//      so that the big (B, P, cap) writes are coalesced, and each probes
+//      one hs entry.
 //   K3: one block per row. A block-wide exclusive scan of the keep flags,
 //      kItems consecutive flags a thread, carried across tiles, gives each
 //      kept anchor its output slot; the rest of the row is zeroed. Stable
@@ -55,7 +62,7 @@ constexpr uint64_t kMaskY = (1ull << 20) - 1;
 constexpr uint64_t kFlagStrand = 1ull << 61;
 constexpr uint64_t kMaskH = (1ull << (2 * kSpan - 2)) - 1;
 
-constexpr int kScanThreads = 128;
+constexpr int kInitThreads = 128;  // four reads a pre-pass block
 constexpr int kThreads = 256;
 constexpr int kTile = 64;  // call positions a probe block
 constexpr int kCThreads = 256;
@@ -68,55 +75,87 @@ __device__ __forceinline__ uint64_t clamped(const uint8_t* __restrict__ row,
   return row[i];
 }
 
-// K1 phase A: hashInit at the first N-free window, then the serial roll
-// from k = kSpan; the states of the in-range call positions go to st_*.
-__global__ void __launch_bounds__(kScanThreads)
-scan_states_kernel(const uint8_t* __restrict__ seqs, int64_t B, int64_t L,
-                   const int64_t* __restrict__ lens, int first, int alpha,
-                   int64_t P, int64_t* __restrict__ st_h,
-                   int64_t* __restrict__ st_crh, int64_t* __restrict__ st_x) {
-  const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
+// K1's pre-pass: one warp a read finds k0, the first N-free 21-window (0
+// if none), 32 positions a round by ballot, and lane 0 writes the per-read
+// state that no call position rebuilds from its own window: k0, T (bits
+// 2..41 of hashInit's crh, the init window's share of crh while k < 41)
+// and the x bias 2 * sum(init) - 63 - 2 * sum(b[21 .. 41)).
+__global__ void __launch_bounds__(kInitThreads)
+scan_init_kernel(const uint8_t* __restrict__ seqs, int64_t B, int64_t L,
+                 int64_t* __restrict__ pre) {
+  const int lane = threadIdx.x & 31;
+  const int64_t b =
+      (int64_t)blockIdx.x * (kInitThreads / 32) + (threadIdx.x >> 5);
+  if (b >= B) return;  // the whole warp leaves
   const uint8_t* row = seqs + b * L;
-  const int64_t lim = lens[b] - kSpan;  // in range: k < lim
-  int64_t n_pos = lim > first ? (lim - first + alpha - 1) / alpha : 0;
-  n_pos = n_pos < P ? n_pos : P;
-  if (n_pos == 0) return;
-  const int64_t k_last = first + (int64_t)alpha * (n_pos - 1);
-
-  int64_t k0 = 0, last_n = -1;
-  for (int64_t i = 0; i < L; i++) {
-    if (row[i] == 4) last_n = i;
-    if (i >= kSpan - 1 && last_n < i - kSpan + 1) {
-      k0 = i - kSpan + 1;
+  // 32 positions a round: the N-free run ending at each (positions past
+  // the row count as N), from the ballot of N positions and the run
+  // carried from the round before; a window [j, j + n_win) is N-free when
+  // the run ending at its last base reaches n_win
+  const int n_win = L < kSpan ? (int)L : kSpan;
+  int64_t k0 = 0;
+  int carry = 0;
+  for (int64_t base = 0; base < L; base += 32) {
+    const int64_t p = base + lane;
+    const unsigned m = __ballot_sync(0xffffffffu, p >= L || row[p] == 4);
+    const unsigned below = m & (0xffffffffu >> (31 - lane));
+    const int run = below ? lane - (31 - __clz((int)below)) : lane + 1 + carry;
+    const unsigned ok = __ballot_sync(0xffffffffu, run >= n_win);
+    if (ok) {
+      k0 = base + (__ffs((int)ok) - 1) - (n_win - 1);
       break;
     }
+    carry = __shfl_sync(0xffffffffu, run, 31);
   }
-  uint64_t h = 0, crh = 0;
-  int64_t x = 0;
-  for (int t = 0; t < kSpan - 1; t++) {
-    const uint64_t v = clamped(row, L, k0 + t);
-    h = (h << 2) + v;
-    crh += (3ull - v) << (2 * (t + 1));
-    x += 2 * (int64_t)v;
-  }
-  x -= 3 * (kSpan - 1) + 3;
-  uint64_t left = 0;
-  int64_t next = first, p = 0;
-  for (int64_t k = kSpan; k <= k_last; k++) {
-    const uint64_t v2 = clamped(row, L, k + kSpan - 1);
-    h = ((h & kMaskH) << 2) + v2;
-    crh = ((crh >> 2) & kMaskH) + ((3ull - v2) << (2 * kSpan - 2));
-    x += 2 * ((int64_t)v2 - (int64_t)left);
-    left = clamped(row, L, k);
-    if (k == next) {
-      st_h[b * P + p] = (int64_t)h;
-      st_crh[b * P + p] = (int64_t)crh;
-      st_x[b * P + p] = x;
-      p++;
-      next += alpha;
+  if (lane == 0) {
+    uint64_t crh0 = 0;
+    int64_t sum = 0;
+    for (int t = 0; t < kSpan - 1; t++) {
+      const uint64_t v = clamped(row, L, k0 + t);
+      crh0 += (3ull - v) << (2 * (t + 1));
+      sum += 2 * (int64_t)v - 2 * (int64_t)clamped(row, L, kSpan + t);
     }
+    pre[b] = k0;
+    pre[B + b] = (int64_t)((crh0 >> 2) & kMaskH);
+    pre[2 * B + b] = sum - 3 * (kSpan - 1) - 3;
   }
+}
+
+// K1's states at call k >= kSpan from the pre-pass, equal to the serial
+// roll's (seeding.py:_scan_states_closed states the closed form). u_m is
+// the value the roll appends at step m, b[m + 20], and b[k0 + m - 1] for
+// m <= 20 (the init window).
+__device__ __forceinline__ void scan_closed_form(
+    const uint8_t* __restrict__ row, int64_t L, int64_t k, int64_t k0,
+    uint64_t T, int64_t bias, uint64_t& h, uint64_t& crh, int64_t& x) {
+  uint64_t hs = 0, cs = 0;
+  int64_t wsum = 0;
+  uint64_t uk;
+  if (k >= 2 * kSpan - 1) {
+    // the init window is shifted out: u_{k-20+t} = b[k+t], the x window
+    for (int t = 0; t < kSpan - 1; t++) {
+      const uint64_t u = clamped(row, L, k + t);
+      wsum += (int64_t)u;
+      hs += u << (2 * (kSpan - 1 - t));
+      cs += ((3ull - u) & 3ull) << (2 * t);
+    }
+    uk = clamped(row, L, k + kSpan - 1);
+    wsum += (int64_t)uk;
+  } else {
+    for (int t = 0; t < kSpan - 1; t++) {  // u_{k-20+t}, weight 4^(20-t)
+      const int64_t m = k - (kSpan - 1) + t;
+      const uint64_t u = m <= kSpan - 1 ? clamped(row, L, k0 + m - 1)
+                                        : clamped(row, L, m + kSpan - 1);
+      hs += u << (2 * (kSpan - 1 - t));
+      if (m >= kSpan) cs += ((3ull - u) & 3ull) << (2 * t);
+    }
+    uk = clamped(row, L, k + kSpan - 1);
+    for (int t = 0; t < kSpan; t++) wsum += (int64_t)clamped(row, L, k + t);
+    cs += T >> (2 * (k - kSpan));
+  }
+  h = uk + (hs & ((1ull << (2 * kSpan)) - 1));
+  crh = ((3ull - uk) << (2 * kSpan - 2)) + cs;
+  x = bias + 2 * wsum;
 }
 
 // hashNextX at call k from its states: xval, yval and strand (1: reverse)
@@ -180,14 +219,13 @@ __device__ __forceinline__ void closed_form(const uint8_t* __restrict__ row,
   x = 2 * wsum - 3 * kSpan + bias;
 }
 
-// K1 phase B (kScan) and K2: the tile's positions, then its slots
+// K1 (kScan, states from the pre-pass and the closed form above) and K2
+// (closed_form): the tile's positions, then its slots
 template <bool kScan>
 __global__ void __launch_bounds__(kThreads)
 probe_kernel(const uint8_t* __restrict__ seqs, int64_t L,
              const int64_t* __restrict__ lens,
-             const int64_t* __restrict__ st_h,
-             const int64_t* __restrict__ st_crh,
-             const int64_t* __restrict__ st_x, int first, int alpha,
+             const int64_t* __restrict__ pre, int first, int alpha,
              int64_t P, const int32_t* __restrict__ dir, int64_t n_dir,
              const int64_t* __restrict__ hs, int64_t n_hs, int cap,
              int64_t x_base, int64_t x_hi, int64_t* __restrict__ anc,
@@ -228,9 +266,9 @@ probe_kernel(const uint8_t* __restrict__ seqs, int64_t L,
       uint64_t h, crh;
       int64_t x;
       if (kScan) {
-        h = (uint64_t)st_h[b * P + p];
-        crh = (uint64_t)st_crh[b * P + p];
-        x = st_x[b * P + p];
+        const int64_t nb = gridDim.y;
+        scan_closed_form(row, L, k, pre[b], (uint64_t)pre[nb + b],
+                         pre[2 * nb + b], h, crh, x);
       } else {
         closed_form(row, L, k, s_bias, h, crh, x);
       }
@@ -332,32 +370,31 @@ extern "C" {
 
 // K1 (scan = 1) or K2 (scan = 0) on `stream`: seqs (B, L) uint8 codes 0..4,
 // lens (B,) int64, dir (n_dir,) int32, hs (n_hs,) int64 -> anc (B, P, cap)
-// int64 and keep (B, P, cap) uint8. K1 needs the (B, P) int64 scratch
-// st_h, st_crh, st_x; K2 probes the xval range [x_base, x_hi) with dir
+// int64 and keep (B, P, cap) uint8. K1 needs the (3, B) int64 scratch pre
+// for its pre-pass; K2 probes the xval range [x_base, x_hi) with dir
 // rebased to x_base. Returns the cudaError_t of the launches (0: launched).
 int lt_seed_anchors(const uint8_t* seqs, int64_t B, int64_t L,
                     const int64_t* lens, int scan, int first, int alpha,
                     int64_t P, const int32_t* dir, int64_t n_dir,
                     const int64_t* hs, int64_t n_hs, int cap, int64_t x_base,
-                    int64_t x_hi, int64_t* st_h, int64_t* st_crh,
-                    int64_t* st_x, int64_t* anc, uint8_t* keep,
+                    int64_t x_hi, int64_t* pre, int64_t* anc, uint8_t* keep,
                     void* stream) {
   if (B <= 0 || P <= 0) return (int)cudaSuccess;
   cudaStream_t st = (cudaStream_t)stream;
   const dim3 grid((unsigned)((P + kTile - 1) / kTile), (unsigned)B);
   if (scan) {
-    scan_states_kernel<<<(unsigned)((B + kScanThreads - 1) / kScanThreads),
-                         kScanThreads, 0, st>>>(seqs, B, L, lens, first, alpha,
-                                                P, st_h, st_crh, st_x);
+    constexpr int kReads = kInitThreads / 32;
+    scan_init_kernel<<<(unsigned)((B + kReads - 1) / kReads), kInitThreads, 0,
+                       st>>>(seqs, B, L, pre);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     probe_kernel<true><<<grid, kThreads, 0, st>>>(
-        seqs, L, lens, st_h, st_crh, st_x, first, alpha, P, dir, n_dir, hs,
-        n_hs, cap, x_base, x_hi, anc, keep);
+        seqs, L, lens, pre, first, alpha, P, dir, n_dir, hs, n_hs, cap,
+        x_base, x_hi, anc, keep);
   } else {
     probe_kernel<false><<<grid, kThreads, 0, st>>>(
-        seqs, L, lens, nullptr, nullptr, nullptr, first, alpha, P, dir, n_dir,
-        hs, n_hs, cap, x_base, x_hi, anc, keep);
+        seqs, L, lens, nullptr, first, alpha, P, dir, n_dir, hs, n_hs, cap,
+        x_base, x_hi, anc, keep);
   }
   return (int)cudaGetLastError();
 }

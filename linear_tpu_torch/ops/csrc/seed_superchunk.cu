@@ -24,7 +24,9 @@
 //      length are never visited.
 //   3. Each position writes its entries below m_out into shared memory:
 //      the anchor (val2Anchor) and a keep flag (the y-check). All tiles keep
-//      scanning to the end, so `probed` is exact even past m_out.
+//      scanning to the end, so `probed` is exact even past m_out. Slots
+//      past kSmemSlots (36 KB; JAX's default m_out is 8,192) go to the
+//      row's part of a device scratch that the wrapper allocates.
 //   4. A second block scan over the keep flags compacts the kept slots in
 //      order into the output row; the unused slots are zeroed.
 // The latency of the dir gathers is hidden by the many resident blocks (one
@@ -37,6 +39,7 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kSmemSlots = 4096;  // slots a row keeps in shared memory
 constexpr int kSpan = 21;
 constexpr int kWeight = 13;
 constexpr int kAlpha = 15;
@@ -60,14 +63,20 @@ __global__ void __launch_bounds__(kThreads)
 seed_superchunk_kernel(const uint8_t* __restrict__ wire, int64_t row_bytes,
                        const int32_t* __restrict__ dir, int64_t n_dir,
                        const int64_t* __restrict__ hs, int64_t n_hs, int cap,
-                       int m_out, int64_t* __restrict__ out) {
+                       int m_out, int64_t* __restrict__ g_anc,
+                       uint8_t* __restrict__ g_keep,
+                       int64_t* __restrict__ out) {
   using BlockScan = cub::BlockScan<int, kThreads>;
   __shared__ typename BlockScan::TempStorage scan_tmp;
   __shared__ int s_xval[kThreads];
   __shared__ int s_prev_x;  // xval of the previous tile's last position
   __shared__ int s_bias;
-  extern __shared__ int64_t s_anc[];  // m_out anchors, then m_out keep flags
-  uint8_t* s_keep = reinterpret_cast<uint8_t*>(s_anc + m_out);
+  // the first n_sm slots' anchors, then their keep flags; slots from n_sm
+  // on in the scratch, m_out - n_sm a row
+  extern __shared__ int64_t s_anc[];
+  const int n_sm = m_out < kSmemSlots ? m_out : kSmemSlots;
+  uint8_t* s_keep = reinterpret_cast<uint8_t*>(s_anc + n_sm);
+  const int64_t g_row = (int64_t)blockIdx.x * (m_out - n_sm);
 
   const int tid = threadIdx.x;
   const uint8_t* pk = wire + (int64_t)blockIdx.x * row_bytes;
@@ -154,8 +163,14 @@ seed_superchunk_kernel(const uint8_t* __restrict__ wire, int64_t row_bytes,
       const uint64_t cordy = (uint64_t)(same ? k : ln - 1 - k);
       uint64_t anc = ent - (cordy << 20) + cordy - ent_y;
       anc = same ? (anc & ~kFlagStrand) : (anc | kFlagStrand);
-      s_anc[first + e] = (int64_t)anc;
-      s_keep[first + e] = y_ok ? 1 : 0;
+      const int slot = first + e;
+      if (slot < n_sm) {
+        s_anc[slot] = (int64_t)anc;
+        s_keep[slot] = y_ok ? 1 : 0;
+      } else {
+        g_anc[g_row + slot - n_sm] = (int64_t)anc;
+        g_keep[g_row + slot - n_sm] = y_ok ? 1 : 0;
+      }
     }
     probed += tile_total;
     // all reads of s_prev_x and scan_tmp of this tile happen before here
@@ -169,10 +184,12 @@ seed_superchunk_kernel(const uint8_t* __restrict__ wire, int64_t row_bytes,
   int count = 0;  // block-uniform: kept slots of earlier tiles
   for (int s0 = 0; s0 < n_slots; s0 += kThreads) {
     const int s = s0 + tid;
-    const int keep = s < n_slots ? s_keep[s] : 0;
+    const int keep = s >= n_slots ? 0
+                     : (s < n_sm ? s_keep[s] : g_keep[g_row + s - n_sm]);
     int dst, tile_kept;
     BlockScan(scan_tmp).ExclusiveSum(keep, dst, tile_kept);
-    if (keep) orow[count + dst] = s_anc[s];
+    if (keep)
+      orow[count + dst] = s < n_sm ? s_anc[s] : g_anc[g_row + s - n_sm];
     count += tile_kept;
     __syncthreads();
   }
@@ -184,18 +201,31 @@ seed_superchunk_kernel(const uint8_t* __restrict__ wire, int64_t row_bytes,
 
 extern "C" {
 
+// Slots a row keeps in the device scratch at m_out: the wrapper allocates
+// rows times that many anchors (int64) and keep flags (uint8).
+int64_t lt_seed_superchunk_scratch_slots(int m_out) {
+  return m_out > kSmemSlots ? m_out - kSmemSlots : 0;
+}
+
 // Launches the kernel on `stream` for `rows` wire rows of `row_bytes` bytes
-// (pad/4 bases + 8 length bytes). out is (rows, m_out + 1) int64. Returns
-// the cudaError_t of the launch (0: launched).
+// (pad/4 bases + 8 length bytes); m_out >= 1. out is (rows, m_out + 1)
+// int64; g_anc and g_keep hold rows * lt_seed_superchunk_scratch_slots
+// slots (both null when that is 0). Returns the cudaError_t of the launch
+// (0: launched).
 int lt_seed_superchunk(const uint8_t* wire, int64_t rows, int64_t row_bytes,
                        const int32_t* dir, int64_t n_dir, const int64_t* hs,
-                       int64_t n_hs, int cap, int m_out, int64_t* out,
-                       void* stream) {
+                       int64_t n_hs, int cap, int m_out, int64_t* g_anc,
+                       uint8_t* g_keep, int64_t* out, void* stream) {
   if (rows <= 0) return (int)cudaSuccess;
-  const size_t smem = (size_t)m_out * (sizeof(int64_t) + 1);
+  if (m_out < 1 || rows > 0x7fffffff ||
+      (lt_seed_superchunk_scratch_slots(m_out) > 0) != (g_anc != nullptr) ||
+      (g_anc != nullptr) != (g_keep != nullptr))
+    return (int)cudaErrorInvalidValue;
+  const int n_sm = m_out < kSmemSlots ? m_out : kSmemSlots;
+  const size_t smem = (size_t)n_sm * (sizeof(int64_t) + 1);
   seed_superchunk_kernel<<<(unsigned)rows, kThreads, smem,
                            (cudaStream_t)stream>>>(
-      wire, row_bytes, dir, n_dir, hs, n_hs, cap, m_out, out);
+      wire, row_bytes, dir, n_dir, hs, n_hs, cap, m_out, g_anc, g_keep, out);
   return (int)cudaGetLastError();
 }
 

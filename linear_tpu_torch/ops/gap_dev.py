@@ -42,8 +42,6 @@ GA_ZERO = 1 << 20
 LLMIN = -(1 << 62)
 LLMAX = 1 << 62
 INVALID = 1 << 62       # the sort key of an unused slot
-G_MAX_LIMIT = 1024      # the kernel's most genome samples an item
-R_MAX_LIMIT = 4096      # and read positions (its shared-memory tables)
 
 # launches of the CUDA kernel by gap_anchors in this process
 launches = 0

@@ -38,7 +38,9 @@ entry order); a read's host seeds are anc[b][keep[b]]. Slots with keep
 False hold 0 (JAX's kernels leave val2Anchor's arithmetic there), so a sum
 over xval shards is the unsharded result on every slot.
   batch_seed_anchors       the exact rolling-hash scan (N bases flow through
-                           it), csrc/seed_anchors.cu K1;
+                           it), csrc/seed_anchors.cu K1, which computes each
+                           call's states in closed form
+                           (_scan_states_closed) instead of rolling;
   batch_seed_anchors_fast  closed-form hash states, exact for N-free reads,
                            optionally probing one xval shard [x_base, x_hi)
                            of the index, csrc/seed_anchors.cu K2;
@@ -66,7 +68,6 @@ N_OFF = SPAN - WEIGHT + 1             # 9 minimizer candidates
 # b[SPAN-1-N_MIX .. SPAN-1) before the bases appended from 2*SPAN-1 on
 N_MIX = 2 * SPAN - 1 - FIRST          # 6
 MASK_W = (1 << (2 * WEIGHT)) - 1
-MAX_M_OUT = 4096                      # the kernel keeps m_out slots in shared memory
 
 # launches of the CUDA kernel by seed_superchunk in this process
 launches = 0
@@ -388,6 +389,70 @@ def _hash_scan_batch(seqs: torch.Tensor):
         empty = torch.zeros((B, 0), dtype=torch.int64, device=dev)
         return empty, empty, empty
     return torch.stack(hs, 1), torch.stack(crhs, 1), torch.stack(xs, 1)
+
+
+def _scan_init(s: torch.Tensor):
+    """The per-read state of the scan that no call position can rebuild from
+    its own window (what kernel K1's pre-pass writes): k0, the first N-free
+    21-window (0 if none); T, bits 2..41 of hashInit's crh, the init
+    window's share of crh for the calls k < 41; and the x bias
+    2 * sum(init) - 63 - 2 * sum(b[21 .. 41)). s is (B, L) int64."""
+    B, L = s.shape
+    dev = s.device
+    n_win = min(SPAN, L)
+    csum = torch.nn.functional.pad(torch.cumsum((s == 4).to(torch.int64), 1),
+                                   (1, 0))
+    ok = (csum[:, n_win:] - csum[:, :-n_win]) == 0
+    k0 = torch.where(ok.any(1), ok.to(torch.int8).argmax(1), 0)
+    init = torch.gather(s, 1, (k0[:, None] + torch.arange(
+        SPAN - 1, device=dev)).clamp(max=L - 1))
+    crh0 = torch.zeros(B, dtype=torch.int64, device=dev)
+    for t in range(SPAN - 1):
+        crh0 = crh0 + ((3 - init[:, t]) << (2 * (t + 1)))
+    T = (crh0 >> 2) & ((1 << (2 * SPAN - 2)) - 1)
+    mid = s[:, torch.arange(SPAN, 2 * SPAN - 1, device=dev).clamp(max=L - 1)]
+    bias = 2 * init.sum(1) - 3 * (SPAN - 1) - 3 - 2 * mid.sum(1)
+    return k0, T, bias
+
+
+def _scan_states_closed(seqs: torch.Tensor, kmat: torch.Tensor):
+    """The scan's states (h, crh, x) after the hashNexth call at each
+    position k of kmat (B, P), 21 <= k < L, without the roll: equal to
+    _hash_scan_batch's column k - 21 on any codes 0..4. This is what kernel
+    K1 computes per call position. With u_m the value the roll appends at
+    step m (b[m + 20], clamped into the row) and u_m = b[k0 + m - 1] for
+    m <= 20 (the init window, whose last value the first step sees as the
+    one appended before it):
+      h   = u_k + (sum_{t=1..20} 4^t u_{k-t} mod 2^42)  (the mask drops
+            everything older, an N's 4 carries inside those bits);
+      crh = (3 - u_k) << 40 + sum over the appended u_{k-t}, t = 1..20,
+            of ((3 - u_{k-t}) & 3) << (40 - 2t), + T >> 2(k - 21) while the
+            init window is not shifted out (k < 41);
+      x   = bias + 2 * sum(b[k .. k+21)), indices clamped into the row."""
+    s = seqs.to(torch.int64)
+    B, L = s.shape
+    dev = s.device
+    k0, T, bias = _scan_init(s)
+    t = torch.arange(SPAN, device=dev)
+    m = kmat[..., None] - (SPAN - 1) + t          # u_m, weight 4^(20 - t)
+    idx = torch.where(m <= SPAN - 1, k0[:, None, None] + m - 1, m + SPAN - 1)
+
+    def gather(p):
+        return torch.gather(s, 1, p.clamp(0, L - 1).reshape(B, -1)).reshape(
+            p.shape)
+
+    u = gather(idx)
+    h = torch.zeros_like(kmat)
+    crh = (3 - u[..., SPAN - 1]) << (2 * SPAN - 2)
+    for j in range(SPAN - 1):
+        h = h + (u[..., j] << (2 * (SPAN - 1 - j)))
+        crh = crh + (torch.where(m[..., j] >= SPAN, (3 - u[..., j]) & 3,
+                                 0) << (2 * j))
+    h = u[..., SPAN - 1] + (h & ((1 << (2 * SPAN)) - 1))
+    sh = (2 * (kmat - SPAN)).clamp(0, 63)
+    crh = crh + torch.where(kmat < 2 * SPAN - 1, T[:, None] >> sh, 0)
+    x = bias[:, None] + 2 * gather(kmat[..., None] + t).sum(-1)
+    return h, crh, x
 
 
 def _minimizer_xy_batch(seqs: torch.Tensor, kmat: torch.Tensor,

@@ -196,3 +196,15 @@ def test_cuda_kernel_matches_plain():
                 for x in AP.pack_pairs(qry, ref, W)]
         assert torch.equal(AP.banded_align(*args, W),
                            AP.banded_align_reference(*args, W))
+
+
+@pytest.mark.parametrize("W", [513])
+def test_bands_past_1024_diagonals_match_jax(W):
+    """KW = 2W past 1,024 (the kernel's block of 1,024 threads then gives
+    each thread two diagonals): the plain version against JAX's Pallas
+    kernel in interpret mode and the oracle."""
+    qry, ref = _pairs(W, W)
+    got = AP.banded_align_scores(qry, ref, W=W, device="cpu")
+    assert np.array_equal(got, JAP.banded_align_scores(qry, ref, W=W))
+    assert got.tolist() == [AP.banded_align_oracle(q, r, W=W)
+                            for q, r in zip(qry, ref)]

@@ -55,14 +55,14 @@ def _random_row(rng, n, y_span=4000, x0=123000):
     return anc
 
 
-def _port_windowed(arr, cnt, score_type):
+def _port_windowed(arr, cnt, score_type, W=W):
     out = CD.chain_dp_windowed_reference(torch.from_numpy(arr),
                                          torch.from_numpy(cnt), W=W,
                                          score_type=score_type)
     return [t.numpy() for t in out]
 
 
-def _jax_windowed(arr, cnt, score_type):
+def _jax_windowed(arr, cnt, score_type, W=W):
     out = JCD.batch_chain_dp_windowed(jnp.asarray(arr), jnp.asarray(cnt), W=W,
                                       score_type=score_type)
     return [np.asarray(t) for t in out]
@@ -332,3 +332,94 @@ def test_cuda_full_kernel_matches_plain():
             got = CD.chain_dp(a, c, score_type=score_type)
             want = CD.chain_dp_reference(a, c, score_type=score_type)
             assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
+# ------------------------------------------- any W, and the packed-key facts
+
+from test_torch_kernel_edges import adversarial_pairs, tied_rows  # noqa: E402,E501
+
+WS = [1, 31, 32, 33, 65, 128]
+
+
+@pytest.mark.parametrize("rows", ["random_dense", "short"])
+@pytest.mark.parametrize("score_type", [0, 1])
+@pytest.mark.parametrize("w", WS)
+def test_windowed_at_any_w_matches_jax(w, score_type, rows):
+    """chain_dp_windowed_reference (what CPU tensors run and the kernel is
+    held to on the card) against JAX's batch_chain_dp_windowed at W around
+    the warp's 32 lanes and past the Mapper's 64: on random and dense rows
+    (N 256), and on short rows at N 64, where W 65 and 128 exceed N."""
+    if rows == "random_dense":
+        arr, cnt = _pack(_random_rows(3 + score_type), N=256)
+    else:
+        rng = np.random.default_rng(40 + w)
+        arr, cnt = _pack([_random_row(rng, int(rng.integers(0, 65)),
+                                      y_span=400) for _ in range(6)], N=64)
+    got = _port_windowed(arr, cnt, score_type, W=w)
+    _assert_same(got, _jax_windowed(arr, cnt, score_type, W=w))
+    assert (got[0] >= 0).any()
+
+
+@pytest.mark.parametrize("score_type", [0, 1])
+@pytest.mark.parametrize("w", [33, 64, 128])
+def test_tied_rows_match_jax(w, score_type):
+    """Rows of clusters of equal anchors: every candidate of a step from the
+    cluster before ties (same edge, same score), so the key's d field alone
+    decides, and JAX's argmax takes the smallest j."""
+    arr, cnt = tied_rows(w, n_rows=4, N=256)
+    got = _port_windowed(arr, cnt, score_type, W=w)
+    _assert_same(got, _jax_windowed(arr, cnt, score_type, W=w))
+    # a chained anchor takes the first anchor of the cluster before it
+    p2 = got[0][0, : cnt[0]]
+    assert (p2 >= 0).sum() > 100 and (p2[p2 >= 0] % 8 == 0).all()
+
+
+@pytest.mark.parametrize("kind", ["random", "near_diagonal", "adversarial"])
+@pytest.mark.parametrize("score_type", [0, 1])
+def test_positive_edge_scores_fit_a_byte(score_type, kind):
+    """What the kernel's uint8 edges rely on: every positive edge score of
+    getApxChainScore (and getApxChainScore0) lies in 1..100 (1..95), and
+    the port's score functions equal JAX's on the pairs."""
+    rng = np.random.default_rng(7 + score_type)
+    if kind == "random":
+        pairs = rng.integers(-(1 << 63), (1 << 63) - 1, (20000, 2),
+                             dtype=np.int64)
+    elif kind == "near_diagonal":
+        row = np.array(_random_row(rng, 4000, y_span=20000),
+                       dtype=np.uint64).view(np.int64)
+        j = rng.integers(0, len(row) - 64, 20000)
+        pairs = np.stack([row[j], row[j + rng.integers(1, 64, len(j))]], 1)
+    else:
+        pairs = adversarial_pairs(rng, 20000)
+    fn = CD._apx_chain_score if score_type == 0 else CD._apx_chain_score0
+    jfn = JCD._apx_chain_score if score_type == 0 else JCD._apx_chain_score0
+    got = fn(torch.from_numpy(pairs[:, 0]), torch.from_numpy(pairs[:, 1]))
+    want = np.asarray(jfn(jnp.asarray(pairs[:, 0]), jnp.asarray(pairs[:, 1])))
+    assert np.array_equal(got.numpy(), want.astype(np.int32))
+    pos = got.numpy()[got.numpy() > 0]
+    assert kind == "random" or len(pos) > 1000
+    assert int(pos.max(initial=0)) <= (100 if score_type == 0 else 95)
+
+
+@pytest.mark.parametrize("w", [1, 2, 31, 32, 33, 64, 128, 4096])
+def test_key_max_picks_jax_argmax(w):
+    """The kernel's one max over key = total << bits | (d - 1) picks what
+    JAX's argmax over the ring order (w = W - d, the oldest first) picks:
+    the largest total, and on ties the smallest j. Rows with every total
+    tied, with ties among a few, with no candidate, and random totals up to
+    the 32-bit key's limit."""
+    rng = np.random.default_rng(w)
+    bits = CD.key_bits(w)
+    top = (1 << (32 - bits)) - 1
+    tot = np.concatenate([
+        np.full((4, w), 57), np.full((1, w), top), np.zeros((2, w)),
+        rng.integers(0, 4, (16, w)) * 100,
+        rng.integers(0, top + 1, (16, w))]).astype(np.int64)
+    tot[:2, : w // 2] = 0
+    best, d = CD.key_max(torch.from_numpy(tot), bits)
+    assert int(((torch.from_numpy(tot) << bits) | (w - 1)).max()) < 1 << 32
+    ring = np.where(tot > 0, tot, -(1 << 40))[:, ::-1]  # column w = W - d
+    arg = np.asarray(jnp.argmax(jnp.asarray(ring), axis=1))
+    found = ring.max(1) > 0
+    assert np.array_equal(best.numpy(), np.where(found, ring.max(1), 0))
+    assert np.array_equal(d.numpy()[found], (w - arg)[found])

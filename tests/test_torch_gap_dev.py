@@ -193,3 +193,33 @@ def test_cuda_kernel_matches_plain(repeat_genome):
             n = min(c, limits[3])
             assert torch.equal(got[0][b, :n], want[0][b, :n])
             assert torch.equal(got[1][b, :n], want[1][b, :n])
+
+
+@pytest.mark.parametrize("limits,near", [((1025, 4096), False),
+                                         ((1024, 4097), False),
+                                         ((2048, 8192), False),
+                                         ((1024, 4096), True)],
+                         ids=["g_max_1025", "r_max_4097", "wide", "near_2_30"])
+def test_past_the_kernel_tables_match_jax_kernel(limits, near):
+    """The shapes past the kernel's usual order: g_max or r_max one past
+    its shared tables (the keyed kernel), both doubled (the emission key's
+    g_rel and r_rel fields then pass 13 bits and overlap, in JAX as here),
+    and windows that start within 5 g_max of 2^30 (the genome entries carry
+    into the std bit; merged by key). The plain version against
+    _gap_anchors_kernel on every slot."""
+    g_max, r_max = limits
+    rng = np.random.default_rng(g_max + r_max + near)
+    genome = rng.integers(0, 4, 80000).astype(np.uint8)
+    items = _items(rng, genome, 6, glen=(5 * g_max - 400, 5 * g_max),
+                   rlen=(r_max - 300, r_max))[0]
+    if near:
+        for t, it in enumerate(items):
+            it["gpos0"] = (1 << 30) - 1500 - 700 * t
+    packed = GD.pack_items(items, g_max, r_max)
+    kw = dict(g_max=g_max, r_max=r_max, cap=16, m_out=4096)
+    got = GD.gap_anchors(*(torch.from_numpy(x) for x in packed), **kw)
+    want = JGD._gap_anchors_kernel(*packed, **kw)
+    for name, g, w in zip(("anchors", "keys", "count", "overflow"), got,
+                          want):
+        assert np.array_equal(g.numpy(), np.asarray(w)), name
+    assert (got[2] > 0).sum() >= 3

@@ -218,3 +218,371 @@ def test_extension_rows_past_the_shared_memory_budget(genome, pad, H):
             > _cuda.EXT_SMEM_ROWS).all()
     _, ncords, ovf = _extend_both(reads, hits, f2, pad, C, H)
     assert (ncords > 1).all() and not ovf.any()
+
+
+# ------------------------------------------------------ windowed chain DP
+
+
+def _anchor(x, y, hi=0):
+    """An anchor with anchor-x x and y y (getAnchorX inverted)."""
+    return (((x - y + (1 << 20)) % (1 << 40)) << 20) + y + hi
+
+
+def _pack_rows(rows, N):
+    arr = np.zeros((len(rows), N), np.uint64)
+    cnt = np.zeros(len(rows), np.int32)
+    for b, r in enumerate(rows):
+        arr[b, : len(r)] = r
+        cnt[b] = len(r)
+    return arr.view(np.int64), cnt
+
+
+def tied_rows(w, n_rows, N, seed=0):
+    """Rows of clusters of equal anchors, 20 apart in x and y: an anchor
+    has no edge within its cluster (dy 0) and the same edge to every anchor
+    of the cluster before it, whose scores are equal, so every candidate of
+    a step that can win ties. Row 0 has clusters of 8 over all N columns;
+    the others random sizes up to 16 and lengths up to N. (int64 (n_rows,
+    N), counts (n_rows,) int32)."""
+    rng = np.random.default_rng(seed + w)
+    rows = []
+    for b in range(n_rows):
+        n = N if b == 0 else int(rng.integers(N // 2, N + 1))
+        row, c = [], 0
+        while len(row) < n:
+            k = 8 if b == 0 else int(rng.integers(1, 17))
+            row += [_anchor(500000 - 20 * c, 200000 - 20 * c)] * k
+            c += 1
+        rows.append(row[:n])
+    return _pack_rows(rows, N)
+
+
+def adversarial_pairs(rng, n):
+    """(a_j, a_i) anchor pairs at the score functions' branch edges: dy
+    around 5, 10, 15 * 150 and 15 * 10000, da around 10, 30 and the
+    denominator, anchor-x near 0 and 2^30, y near 0 and 2^20, bit 61 and
+    the high bits set."""
+    dys = np.array([-3, 0, 4, 5, 6, 9, 10, 11, 2249, 2250, 2251, 149999,
+                    150000, 150001, (1 << 20) - 1])
+    das = np.array([0, 9, 10, 11, 29, 30, 31, 49, 50, 51, 1000, 1 << 25,
+                    (1 << 30) - 1])
+    pairs = []
+    for _ in range(n):
+        dy = int(rng.choice(dys))
+        da = int(rng.choice(das)) * int(rng.choice([-1, 1]))
+        yi = int(rng.integers(0, (1 << 20) - max(dy, 0)))
+        xi = int(rng.integers(0, 1 << 30))
+        yj, xj = yi + dy, (xi + dy + da) % (1 << 30)
+        hi = int(rng.choice([0, 1 << 61, 3 << 62]))
+        pairs.append((_anchor(xj, yj % (1 << 20), hi), _anchor(xi, yi)))
+    return np.array(pairs, dtype=np.uint64).view(np.int64)
+
+
+def _dp_rows(rng, W, N):
+    """Rows of n in {0, 1, W, W + 1, N} anchors near one diagonal (some
+    within dx-depth of anchors past W), sorted by descending anchor-x."""
+    rows = []
+    for n in sorted({0, 1, min(W, N), min(W + 1, N), N}):
+        for y_span in (max(4, 40 * n), max(4, 3 * n)):
+            ys = np.sort(rng.integers(0, y_span, n))[::-1]
+            xs = 300000 - ys + rng.integers(-150, 150, n)
+            rows.append(sorted(
+                (_anchor(int(x), int(y), int(rng.integers(0, 2)) << 61)
+                 for x, y in zip(xs, ys)), key=CS.anchor_x, reverse=True))
+    return rows
+
+
+def _windowed_both(arr, cnt, W, score_type):
+    from linear_tpu_torch.ops import chain_dp as CD
+
+    a, c = torch.from_numpy(arr).cuda(), torch.from_numpy(cnt).cuda()
+    got = CD.chain_dp_windowed(a, c, W=W, score_type=score_type)
+    want = CD.chain_dp_windowed_reference(a, c, W=W, score_type=score_type)
+    for x, y in zip(got, want):
+        assert torch.equal(x.cpu(), y.cpu())
+    return [t.cpu().numpy() for t in want]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [1, 33, 128])
+def test_windowed_dp_any_w_row_lengths_and_ties(W):
+    """W 1, 33 and 128 (one lane's lookbacks, a warp and one more, four a
+    lane) on rows of 0, 1, W, W + 1 and N anchors, and on rows where every
+    winning total ties, both score types."""
+    _card()
+    rng = np.random.default_rng(40 + W)
+    N = 256
+    for score_type in (0, 1):
+        arr, cnt = _pack_rows(_dp_rows(rng, W, N), N)
+        out = _windowed_both(arr, cnt, W, score_type)
+        assert (out[0] >= 0).any()
+        arr, cnt = tied_rows(max(W, 1), 6, N)
+        out = _windowed_both(arr, cnt, W, score_type)
+        if W > 8:
+            assert (out[0][0][out[0][0] >= 0] % 8 == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W,N", [(64, 8192), (4096, 12288)])
+def test_windowed_dp_one_long_chain(W, N):
+    """One row of N anchors in one chain (each 20 after the last: totals up
+    to 100 (N - 1)), beside short rows. At W 4096 the key needs 12 index
+    bits, so 100 N passes 2^20 and the row takes the 64-bit path; its ring
+    (8,192 slots) and row table pass their shared-memory budgets and live in
+    the device scratch."""
+    _card()
+    rng = np.random.default_rng(N)
+    chain = [_anchor(600000 - 20 * k, 900000 - 20 * k) for k in range(N)]
+    rows = [chain, _dp_rows(rng, 64, 512)[-1]]
+    arr, cnt = _pack_rows(rows, N)
+    out = _windowed_both(arr, cnt, W, 0)
+    assert out[2][0, N - 1] == N and out[1][0, N - 1] == 100 * (N - 1)
+
+
+# --------------------------------------------------------- K1 with N bases
+
+
+def n_dense_reads(genome, rng):
+    """Reads dense with N for the scan's state, by kind: N in the init
+    window (the first N-free 21-window moves), N only in the last 21 bases,
+    a base N every 21, an all-N read, N runs in the first 41 bases (the
+    calls k < 41 still hold init bases), reads shorter than 42, lengths 21
+    and 22, and an N-free read."""
+    def cut(ln, *runs):
+        p = int(rng.integers(0, len(genome) - ln))
+        r = genome[p: p + ln].copy()
+        for sl in runs:
+            r[sl] = 4
+        return r
+
+    reads = {
+        "init_window": cut(3000, slice(3, 9)),
+        "first_window_moves": cut(3000, slice(0, 25), 30),
+        "last_21": cut(3000, slice(-21, None)),
+        "every_21": cut(3000, slice(None, None, 21)),
+        "every_21_from_10": cut(3000, slice(10, None, 21)),
+        "all_n": np.full(3000, 4, np.uint8),
+        "init_tail": cut(3000, slice(20, 41)),
+        "first_calls": cut(3000, slice(35, 56)),
+        "scattered": cut(3000, rng.random(3000) < 0.3),
+        "n_free": cut(3000),
+    }
+    for ln in (21, 22, 30, 41, 56, 57):
+        reads[f"len_{ln}"] = cut(ln, ln // 2)
+    return reads
+
+
+@pytest.mark.cuda
+def test_scan_seeding_on_n_dense_reads(genome):
+    """K1 (pre-pass and closed-form states) against the plain scan on the
+    card, on the N-dense reads, at pad 4096 and at a pad of 128 (most reads
+    cut, three call positions)."""
+    _card()
+    from linear_tpu_torch.ops import seeding as SD
+
+    g, _ = genome
+    idx = DI.build_dindex([g], 4)
+    index = SD.upload_index(idx.dir, idx.hs, "cuda")
+    reads = list(n_dense_reads(g, np.random.default_rng(33)).values())
+    for pad in (4096, 128):
+        seqs, lens = SD.pad_reads(reads, pad)
+        args = (torch.from_numpy(seqs).cuda(), torch.from_numpy(lens).cuda(),
+                index.dir_start, index.hs, index.cap)
+        got = SD.batch_seed_anchors(*args)
+        want = SD.batch_seed_anchors_reference(*args)
+        assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+        assert int(want[1].sum()) > (300 if pad == 4096 else 0)
+
+
+# --------------------------------- the shapes past the kernels' shared memory
+
+
+@pytest.mark.cuda
+def test_full_dp_past_the_shared_memory_row():
+    """The full DP at N 12,288 (past 11,622 anchors in shared memory: the
+    row lives in the device scratch), sorted and shuffled rows."""
+    _card()
+    from linear_tpu_torch.ops import chain_dp as CD
+
+    rng = np.random.default_rng(34)
+    N = 12288
+    row = [_anchor(700000 - 3 * k + int(rng.integers(-100, 100)),
+                   (900000 - 3 * k) % (1 << 20)) for k in range(N - 5)]
+    shuffled = [row[k] for k in rng.permutation(3000)]
+    arr, cnt = _pack_rows([row, shuffled], N)
+    a, c = torch.from_numpy(arr).cuda(), torch.from_numpy(cnt).cuda()
+    for score_type in (0, 1):
+        got = CD.chain_dp(a, c, score_type=score_type)
+        want = CD.chain_dp_reference(a, c, score_type=score_type)
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [513, 600, 13000])
+def test_banded_past_1024_diagonals(W):
+    """KW 1,026 (just past one thread a diagonal), 1,200, and 26,000, whose
+    rows pass the shared-memory budget and live in the device scratch."""
+    _card()
+    from linear_tpu_torch.ops import align_pallas as AP
+
+    rng = np.random.default_rng(W)
+    qry, ref = [], []
+    for k in range(6):
+        base = rng.integers(0, 4, int(rng.integers(200, 1500))).astype(
+            np.uint8)
+        q = base.copy()
+        q[rng.random(len(q)) < 0.1] = 3
+        r = np.concatenate([rng.integers(0, 4, 300 * (k % 3)).astype(np.uint8),
+                            base])
+        qry.append(q)
+        ref.append(r)
+    a, bpad, nm = (torch.from_numpy(x).cuda()
+                   for x in AP.pack_pairs(qry, ref, W))
+    got = AP.banded_align(a, bpad, nm, W)
+    want = AP.banded_align_reference(a, bpad, nm, W)
+    assert torch.equal(got, want) and int(want.max()) > 300
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [1, 16, 100, 512])
+def test_banded_one_diagonal_a_thread(W):
+    """KW 2 to 1,024: a block of round32(KW) threads, one diagonal each,
+    the pair's row in shared memory."""
+    _card()
+    from linear_tpu_torch.ops import align_pallas as AP
+
+    rng = np.random.default_rng(W + 1)
+    qry, ref = [], []
+    for k in range(8):
+        base = rng.integers(0, 4, int(rng.integers(50, 900))).astype(np.uint8)
+        q = base.copy()
+        q[rng.random(len(q)) < 0.1] = 3
+        r = np.concatenate([rng.integers(0, 4, 7 * k).astype(np.uint8), base])
+        qry.append(q)
+        ref.append(r)
+    a, bpad, nm = (torch.from_numpy(x).cuda()
+                   for x in AP.pack_pairs(qry, ref, W))
+    got = AP.banded_align(a, bpad, nm, W)
+    want = AP.banded_align_reference(a, bpad, nm, W)
+    assert torch.equal(got, want) and int(want.max()) > 0
+
+
+def _gap_items(g, rng, n, glen, rlen, gpos_hi=None):
+    items = []
+    for t in range(n):
+        gs = int(rng.integers(0, len(g) - glen - 600))
+        ge = gs + glen
+        rs_pos = gs + int(rng.integers(0, 100))
+        read = g[rs_pos: rs_pos + rlen + 500].copy()
+        sub = rng.random(len(read)) < 0.08
+        read[sub] = (read[sub] + 1) % 4
+        items.append({"gwin": g[gs: ge + 8], "g_n": glen,
+                      "gpos0": gs if gpos_hi is None else gpos_hi - t * 7,
+                      "rwin": read[: rlen + 8], "r_n": rlen, "rpos0": 0,
+                      "rvcp": len(read) - 1,
+                      "a_lo": -(1 << 40) if t % 2 == 0 else -500,
+                      "a_hi": (1 << 40) if t % 2 == 0 else 1500})
+    return items
+
+
+def _gap_both(items, g_max, r_max, cap, m_out):
+    from linear_tpu_torch.ops import gap_dev as GD
+
+    packed = [torch.from_numpy(x).cuda()
+              for x in GD.pack_items(items, g_max, r_max)]
+    got = GD.gap_anchors(*packed, g_max, r_max, cap, m_out)
+    want = GD.gap_anchors_reference(*packed, g_max, r_max, cap, m_out)
+    count = want[2].cpu()
+    assert torch.equal(got[2].cpu(), count)
+    assert torch.equal(got[3].cpu(), want[3].cpu())
+    defined = torch.arange(m_out)[None, :] < count.clamp(max=m_out)[:, None]
+    for x, y in zip(got[:2], want[:2]):
+        assert torch.equal(torch.where(defined, x.cpu(), 0),
+                           torch.where(defined, y.cpu(), 0))
+    return count
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("limits", [(1025, 4096), (1024, 4097), (2048, 8192)])
+def test_gap_anchors_past_the_shared_tables(genome, limits):
+    """g_max 1,025 or r_max 4,097 (one past the shared tables) and 2,048 /
+    8,192: the keyed branch, on windows that fill them."""
+    _card()
+    g_max, r_max = limits
+    g, _ = genome
+    rng = np.random.default_rng(g_max + r_max)
+    items = _gap_items(g, rng, 12, 5 * g_max - 20, r_max - 3)
+    count = _gap_both(items, g_max, r_max, 16, 4096)
+    assert int(count.max()) > 0
+
+
+@pytest.mark.cuda
+def test_gap_anchors_windows_near_2_30(genome):
+    """Windows that start within 5 g_max of 2^30 (the genome entries carry
+    into the std bit) have their kept pairs merged by JAX's emission key,
+    in one launch with items that do not."""
+    _card()
+    g, _ = genome
+    rng = np.random.default_rng(35)
+    near = _gap_items(g, rng, 8, 4000, 3000, gpos_hi=(1 << 30) - 2000)
+    far = _gap_items(g, rng, 8, 4000, 3000)
+    count = _gap_both(near + far, 1024, 4096, 16, 2048)
+    assert int(count[:8].max()) > 0 and int(count[8:].max()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m_out", [1, 100, 300])
+def test_gap_anchors_near_2_30_past_m_out(genome, m_out):
+    """Windows near 2^30 and below 0, whose kept pairs are merged into the
+    output row by key a round of 256 at a time, with more kept pairs than
+    m_out: the row keeps the first m_out by key, as JAX's argsort does."""
+    _card()
+    g, _ = genome
+    rng = np.random.default_rng(37 + m_out)
+    near = _gap_items(g, rng, 6, 5000, 4000, gpos_hi=(1 << 30) - 3000)
+    below = _gap_items(g, rng, 4, 3000, 2500, gpos_hi=-1200)
+    count = _gap_both(near + below, 1024, 4096, 16, m_out)
+    assert int(count.max()) > m_out
+
+
+@pytest.mark.cuda
+def test_seed_superchunk_past_4096_slots(genome):
+    """m_out 8,192, JAX's default: rows whose probe passes 4,096 slots keep
+    the rest in the device scratch."""
+    _card()
+    from linear_tpu_torch.ops import seeding as SD
+
+    g, _ = genome
+    idx = DI.build_dindex([g], 4)
+    index = SD.upload_index(idx.dir, idx.hs, "cuda")
+    rng = np.random.default_rng(36)
+    reads = [g[p: p + 120000].copy()
+             for p in rng.integers(0, len(g) - 120000, 6)]
+    wire, _ = SD.pack_superchunk(reads, 131072, 8)
+    w = torch.from_numpy(wire).cuda()
+    for m_out in (8192, 5000):
+        got = SD.seed_superchunk(w, index, m_out).cpu().numpy()
+        want = SD.seed_superchunk_reference(w, index.dir_start, index.hs,
+                                            index.cap, m_out).cpu().numpy()
+        count = want[:, -1] & 0xFFFFFFFF
+        assert np.array_equal(got[:, -1], want[:, -1])
+        for b in range(len(want)):
+            assert np.array_equal(got[b, : count[b]], want[b, : count[b]])
+        assert int((want[:, -1] >> 32).max()) > 4096
+
+
+@pytest.mark.cuda
+def test_windowed_dp_edge_scores_at_branch_edges():
+    """The kernel's 32-bit, branch-free edge scores against the plain
+    version's: rows of two anchors from pairs at the score functions'
+    branch edges (dy near 5, 10, 2,250 and 150,000, da near 10, 30, the
+    denominator and 2^25, anchor-x near 0 and 2^30, high bits set), whose
+    second column's score is the edge's score when it is positive."""
+    _card()
+    pairs = adversarial_pairs(np.random.default_rng(37), 8192)
+    arr = np.zeros((len(pairs), 2), np.int64)
+    arr[:, :] = pairs
+    cnt = np.full(len(pairs), 2, np.int32)
+    for score_type in (0, 1):
+        out = _windowed_both(arr, cnt, 64, score_type)
+        assert (out[1][:, 1] > 0).sum() > 300

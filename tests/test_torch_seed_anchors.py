@@ -373,3 +373,31 @@ def test_cuda_compact_matches_plain(world, m_out):
     got = SD.compact_anchors(anc, keep, m_out)
     want = SD.compact_anchors_reference(anc, keep, m_out)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+# ------------------------------------------- K1's closed form of the scan
+
+from test_torch_kernel_edges import n_dense_reads  # noqa: E402
+
+N_KINDS = list(n_dense_reads(np.zeros(4000, np.uint8),
+                             np.random.default_rng(0)))
+
+
+@pytest.mark.parametrize("tail", [0, 37], ids=["tight", "padded"])
+@pytest.mark.parametrize("kind", N_KINDS)
+def test_scan_states_closed_matches_jax(world, kind, tail):
+    """_scan_states_closed (what kernel K1 computes at each call position,
+    from the pre-pass's k0, init crh share and x bias) against JAX's
+    _hash_scan_batch at every position k in [21, L), on reads of one kind
+    (three reads, other cuts of the genome) in a row of the read's length or
+    37 bases longer (zero padding, clamped reads past the row)."""
+    genome = world[0]
+    reads = [n_dense_reads(genome, np.random.default_rng(s))[kind]
+             for s in (1, 2, 3)]
+    L = len(reads[0]) + tail
+    seqs, _ = SD.pad_reads(reads, L)
+    kmat = torch.arange(21, L)[None, :].expand(len(reads), -1)
+    got = SD._scan_states_closed(torch.from_numpy(seqs), kmat)
+    want = JSD._hash_scan_batch(jnp.asarray(seqs.astype(np.int32)), 21)
+    for g, w in zip(got, want):
+        assert np.array_equal(g.numpy(), np.asarray(w).astype(np.int64))
