@@ -19,7 +19,8 @@ Phases, each of which raises (exit code != 0) on failure:
      8,192 (32, 262144, 8192), whose rows pass the 4,096 slots the kernel
      keeps in shared memory: exact equality on the defined
      part of every row (anchors[:count] and the count | probed << 32
-     tail); times from CUDA events;
+     tail); times from CUDA events, and the card's busy time
+     (torch.profiler) beside them;
   5. the extension kernel (_filterHits + path_dst_2) against its plain
      version, both on the card, at the -b 0 path's shape (B, pad, H, C, R)
      = (1024, 8192, 256, 512, 510), with the hits of the native first pass
@@ -90,9 +91,12 @@ Phases, each of which raises (exit code != 0) on failure:
        at n_max 256 and 8192, on the scan grid of the corpus reads with N,
        on the closed-form grid of N-free reads, and on hand-built rows of
        the same width (more kept than n_max, every slot kept with few
-       distinct anchor-x, nothing kept, exactly n_max kept): every column
-       and count exactly equal; torch.sort(stable=True) + gather timed
-       beside it as the library call;
+       distinct anchor-x, nothing kept, exactly n_max kept, one under, at
+       and one over the 1,024 items a row sorts in registers and the 8,192
+       of a shared-memory tile): every column and count exactly equal;
+       torch.sort(stable=True) + gather timed beside it as the library
+       call, the card's busy time (torch.profiler) beside the CUDA-event
+       time;
        (b) mapping_step with either seeder at (MESH_B, MESH_PAD), n_max
        256 (the sort kernel inside), against the same step built from the
        plain versions on the card: all six outputs equal;
@@ -386,13 +390,15 @@ def check_kernel(index, genome, rng):
                              zip(got[:, -1], want[:, -1]) if a != b] + [0])
         n_over = int((probed > m_out).sum())
         ms = time_ms(lambda: SD.seed_superchunk(w, index, m_out), 20)
+        dev_ms = device_ms(lambda: SD.seed_superchunk(w, index, m_out), 20)
         plain_ms = time_ms(lambda: SD.seed_superchunk_reference(
             w, index.dir_start, index.hs, index.cap, m_out), 5)
         log(f"kernel check rows={rows} pad={pad} m_out={m_out}: "
             f"defined entries {int(defined.sum())}, mismatches {len(bad)}, "
             f"tail mismatches {bad_tail}, N rows {int(n_mask[:len(reads)].sum())}, "
             f"overflow rows {n_over}, max probed {int(probed.max())}; "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+            f"kernel {ms:.4f} ms (card busy {dev_ms:.4f} ms), plain "
+            f"{plain_ms:.4f} ms")
         if bad_tail or len(bad):
             raise AssertionError(f"kernel disagrees with the plain version "
                                  f"at {(rows, pad, m_out)}")
@@ -407,7 +413,8 @@ def check_kernel(index, genome, rng):
         calls = n_calls([min(len(r), pad) for r in reads])
         slots = int(np.minimum(probed, m_out).sum())
         results.append({"shape": [rows, pad, m_out], "ms": ms,
-                        "plain_ms": plain_ms, "max_abs_err": max_abs_err,
+                        "device_ms": dev_ms, "plain_ms": plain_ms,
+                        "max_abs_err": max_abs_err,
                         **bound(wire.nbytes + rows * (m_out + 1) * 8
                                 + 8 * calls + 8 * slots,
                                 150 * calls + 20 * slots)})
@@ -896,13 +903,28 @@ def sort_by_library(anc, keep, n_max: int):
             kflat.sum(1).clamp(max=n_max).to(torch.int32))
 
 
+def network_comparators(kept_rows) -> int:
+    """Comparators of the sort kernel's bitonic network over rows of these
+    kept counts: K / 2 a stage, log2(N) (log2(N) + 1) / 2 stages, N the
+    power of two >= K."""
+    total = 0
+    for k in kept_rows.tolist():
+        lg = max(k - 1, 0).bit_length()
+        total += lg * (lg + 1) // 2 * (k // 2)
+    return total
+
+
 def hand_sort_rows(rng, n: int, n_max: int):
     """Rows of n slots for the sort kernel: more kept than n_max; every
     slot kept with 64 distinct anchor-x (ties); nothing kept; exactly n_max
-    kept; one short of it; one kept slot, the row's last."""
+    kept; one short of it; one kept slot, the row's last; one under, at and
+    one over the 1,024 items a row sorts in registers and the 8,192 of a
+    shared-memory tile."""
     import torch
 
-    rows = 6
+    from linear_tpu_torch.ops import chain_dp as CD
+
+    rows = 12
     anc = ((rng.integers(0, 2, (rows, n)) << 61)
            | (rng.integers(0, 1 << 30, (rows, n)) << 20)
            | rng.integers(0, 1 << 20, (rows, n))).astype(np.int64)
@@ -914,6 +936,10 @@ def hand_sort_rows(rng, n: int, n_max: int):
     keep[3, rng.choice(n, n_max, replace=False)] = True
     keep[4, rng.choice(n, n_max - 1, replace=False)] = True
     keep[5, n - 1] = True
+    for r, k in enumerate((CD.SORT_REG_ITEMS - 1, CD.SORT_REG_ITEMS,
+                           CD.SORT_REG_ITEMS + 1, CD.SORT_TILE - 1,
+                           CD.SORT_TILE, CD.SORT_TILE + 1), start=6):
+        keep[r, rng.choice(n, k, replace=False)] = True
     return torch.from_numpy(anc).cuda(), torch.from_numpy(keep).cuda()
 
 
@@ -937,6 +963,7 @@ def check_anchor_sort(name, anc, keep, rng, hand_rows: bool) -> list:
         torch.cuda.synchronize()
         same = _equal_all(got, want) and _equal_all(got, lib)
         ms = time_ms(lambda: CD.sort_anchors(anc, keep, n_max), 20)
+        dev_ms = device_ms(lambda: CD.sort_anchors(anc, keep, n_max), 20)
         plain_ms = time_ms(lambda: CD.sort_anchors_reference(
             anc, keep, n_max), 3)
         lib_ms = time_ms(lambda: sort_by_library(anc, keep, n_max), 3)
@@ -945,19 +972,21 @@ def check_anchor_sort(name, anc, keep, rng, hand_rows: bool) -> list:
             f"kept {kept} (a row at most {int(kept_rows.max())}), rows "
             f"over n_max {int((kept_rows > n_max).sum())}, every column "
             f"and count equal to the plain version and to the library "
-            f"sort {same}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"sort {same}; kernel {ms:.4f} ms (card busy {dev_ms:.4f} ms), "
+            f"plain {plain_ms:.4f} ms, "
             f"torch.sort(stable=True) + gather {lib_ms:.4f} ms")
         if not same:
             raise AssertionError(f"the anchor sort kernel disagrees on "
                                  f"{name} at n_max {n_max}")
         # what this grid needs: every keep flag, the kept anchors (no
         # other slot is read), the rows and counts out; ~3 operations a
-        # flag and ~60 a kept anchor (six radix passes)
+        # flag and ~4 a comparator of each row's sorting network
         out.append({"shape": [B, n, n_max], "rows": name, "ms": ms,
-                    "plain_ms": plain_ms, "library_ms": lib_ms,
+                    "device_ms": dev_ms, "plain_ms": plain_ms,
+                    "library_ms": lib_ms,
                     "max_abs_err": 0, "kept": kept,
                     **bound(B * n + 8 * kept + B * (8 * n_max + 4),
-                            3 * B * n + 60 * kept)})
+                            3 * B * n + 4 * network_comparators(kept_rows))})
     for n_max in SORT_N_MAXES if hand_rows else ():
         anc, keep = hand_sort_rows(rng, n, n_max)
         got = CD.sort_anchors(anc, keep, n_max)
@@ -2015,7 +2044,7 @@ def main() -> int:
     print(json.dumps({"kernels": [
         entry("seed_superchunk", "seed_superchunk.cu",
               "linear_tpu/ops/seeding.py:443", st_cuda["launches"], checks,
-              checks[0], shapes=checks),
+              checks[0], shapes=checks, device_ms=checks[0]["device_ms"]),
         entry("filter_extend", "filter_extend.cu",
               "linear_tpu/ops/extend_dev.py:537", st_b0["ext_launches"],
               ext_checks, ext_checks[0], shapes=ext_checks),
@@ -2039,7 +2068,8 @@ def main() -> int:
         entry("sort_anchors", "sort_anchors.cu",
               "linear_tpu/parallel/mesh.py:44", mesh["sort_launches"],
               seeding["sort"], seeding["sort"][0], shapes=seeding["sort"],
-              path="mesh mapping step"),
+              path="mesh mapping step",
+              device_ms=seeding["sort"][0]["device_ms"]),
         entry("chain_dp_full", "chain_dp.cu",
               "linear_tpu/ops/chain_dp.py:86", full_launches, full_checks,
               full_checks[1], shapes=full_checks, path=ENTRY_ONLY),

@@ -11,17 +11,23 @@ A; a root may be named more than once), each turn in a process of its own
 that imports that root's package. Every turn times every case on the same
 inputs, made from --seed with numpy: "ms" is a call of the entry point by
 CUDA events over --iters calls after a warm one (host work included),
-"device_ms" the card's busy time a call by torch.profiler. "sha" is a
-digest of the case's outputs, so two roots that agree show the same one; a
+"host_ms" the host's time to issue a call (the floor of "ms" when the card
+is the faster), "device_ms" the card's busy time a call by torch.profiler
+("device_parts": each kernel's share). "sha" is a digest of the case's
+outputs, so two roots that agree show the same one; a
 case that a root refuses (ValueError) reads "refused". It prints a JSON
-line a turn and a table of each root's turns, and writes the turns to
---out.
+line a turn and a table of each root's turns, and writes the card's name
+and power limit (nvidia-smi) with the turns to --out.
 
 The cases: the windowed chain DP on (256, 512) rows at W 1, 33, 64 and 128;
 the full chain DP on the same rows and on (64, 8192) long-read rows; the
 gap anchors on 512 items at the defaults (1024, 4096, 16, 2048) and on 16
 items near 2^30; the banded alignment on 625 pairs of up to 7,000 bases at
-W 100, 128 and 600.
+W 100, 128 and 600; the seed superchunk kernel at (rows, pad, m_out) =
+(1024, 8192, 128) and (256, 8192, 512), and the anchor sort of the scan
+grid (256, 191,488) at n_max 256 and 8192, on a corpus made as chip_smoke.py
+makes its own (seed_corpus). --cases keeps the cases whose name holds one
+of the words given.
 """
 from __future__ import annotations
 
@@ -117,6 +123,59 @@ def band_pairs(rng, n: int):
     return qry, ref
 
 
+# the seed and sort cases: chip_smoke.py's corpus genome and reads (its
+# DIndex built on the card from the genome with its N replaced), the seed
+# kernel's two m_out tiers at the corpus' pad, and the scan grid of the
+# mesh path at the corpus index's cap (P * cap = 544 * 352 = 191,488 slots a
+# row) sorted at the mapping steps' n_max and at the chain DP's widest
+CORPUS_GENOME, CORPUS_READ_LEN, CORPUS_PAD = 4_600_000, 7000, 8192
+SEED_TIERS = ((1024, 128), (256, 512))
+SORT_B, SORT_CAP, SORT_N_MAXES = 256, 352, (256, 8192)
+
+
+def seed_corpus(rng, genome_len: int, n_reads: int, device, threads: int = 8):
+    """(index, reads): a genome of genome_len bases as chip_smoke.py makes
+    its corpus (make_genomic_genome), its DIndex built on `device` from the
+    genome with every N replaced by a random base, and n_reads reads of
+    about 7 kb simulated from the genome with its N (simulate_reads)."""
+    from linear_tpu_torch.ops import devbuild as DB
+    from linear_tpu_torch.utils import simdata
+
+    genome = simdata.make_genomic_genome(rng, genome_len)
+    g = genome.copy()
+    n = g == 4
+    g[n] = rng.integers(0, 4, int(n.sum()))
+    index = DB.device_build_to_index(*DB.build_dindex_device([g], device,
+                                                             threads))
+    reads = simdata.simulate_reads(rng, genome, n_reads,
+                                   min(CORPUS_READ_LEN, genome_len // 4))
+    return index, reads
+
+
+def seed_inputs(index, reads, rows: int, pad: int):
+    """The wire of the first `rows` reads on the index's device."""
+    import torch
+
+    from linear_tpu_torch.ops import seeding as SD
+
+    wire, _ = SD.pack_superchunk(reads[:rows], pad, rows)
+    return torch.from_numpy(wire).to(index.device)
+
+
+def sort_inputs(index, reads, B: int, pad: int, cap: int):
+    """The scan grid (anchors, keep), each (B, P, cap), of the first B
+    reads: what the mesh's mapping step sorts."""
+    import torch
+
+    from linear_tpu_torch.ops import seeding as SD
+
+    seqs, lens = SD.pad_reads(reads[:B], pad)
+    dev = index.device
+    return SD.batch_seed_anchors(torch.from_numpy(seqs).to(dev),
+                                 torch.from_numpy(lens).to(dev),
+                                 index.dir_start, index.hs, cap)
+
+
 def _digest(out) -> str:
     h = hashlib.sha256()
     for t in out if isinstance(out, (tuple, list)) else (out,):
@@ -124,8 +183,59 @@ def _digest(out) -> str:
     return h.hexdigest()[:16]
 
 
-def cases(seed: int):
-    """(name, fn) for every case, the inputs on the card."""
+def defined_seeds(res):
+    """The defined part of seed_superchunk's rows: anchors[:count] (the
+    rest zeroed) and the tail column."""
+    import torch
+
+    m_out = res.shape[1] - 1
+    cols = torch.arange(m_out, device=res.device)[None, :]
+    live = cols < (res[:, -1:] & 0xFFFFFFFF)
+    return torch.where(live, res[:, :-1], 0), res[:, -1]
+
+
+def seed_sort_cases(seed: int, dev: str = "cuda"):
+    """(name, fn, digest view) of the seed superchunk and anchor sort
+    cases, from their own numpy generator."""
+    from linear_tpu_torch.ops import chain_dp as CD
+    from linear_tpu_torch.ops import seeding as SD
+
+    index, reads = seed_corpus(np.random.default_rng(seed), CORPUS_GENOME,
+                               SEED_TIERS[0][0], dev)
+    out = []
+    for rows, m_out in SEED_TIERS:
+        w = seed_inputs(index, reads, rows, CORPUS_PAD)
+
+        out.append((f"seed_superchunk ({rows}, {CORPUS_PAD}, {m_out})",
+                    lambda w=w, m_out=m_out: SD.seed_superchunk(w, index,
+                                                                m_out),
+                    defined_seeds))
+    anc, keep = sort_inputs(index, reads, SORT_B, CORPUS_PAD, SORT_CAP)
+    n = anc[0].numel()
+    for n_max in SORT_N_MAXES:
+        out.append((f"sort_anchors ({SORT_B}, {n}) -> {n_max}",
+                    lambda n_max=n_max: CD.sort_anchors(anc, keep, n_max),
+                    None))
+    return out
+
+
+def cases(seed: int, words=None):
+    """(name, fn, digest view or None) for every case whose name holds one
+    of `words` (all without), the inputs on the card."""
+    def wanted(*names):
+        return words is None or any(w in n for w in words for n in names)
+
+    out = []
+    if wanted("chain_dp", "gap_anchors", "banded_align"):
+        out += [c + (None,) for c in _older_cases(seed)]
+    if wanted("seed_superchunk", "sort_anchors"):
+        out += seed_sort_cases(seed)
+    return [c for c in out if wanted(c[0])]
+
+
+def _older_cases(seed: int):
+    """(name, fn) of the chain DP, gap anchor and banded alignment cases,
+    from one numpy generator."""
     import torch
 
     from linear_tpu_torch.ops import align_pallas as AP
@@ -174,9 +284,28 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int) -> float:
+def host_ms(fn, iters: int) -> float:
+    """The host's time to issue a call (ms, the host clock over iters calls
+    that are not waited for; the card then catches up): the floor of a
+    CUDA-event time when the card's share is smaller."""
+    import time
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e3 / iters
+
+
+def device_ms(fn, iters: int, parts=None) -> float:
     """The card's busy time a call: the device events torch.profiler
-    traces over iters calls, after a warm one."""
+    traces over iters calls, after a warm one. `parts`, a dict, gets each
+    device event's name (its first 48 characters) and its time a call."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -188,13 +317,17 @@ def device_ms(fn, iters: int) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA)
-    return us / 1e3 / iters
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    if parts is not None:
+        for e in events:
+            parts[e.key[:48]] = e.self_device_time_total / 1e3 / iters
+    return sum(e.self_device_time_total for e in events) / 1e3 / iters
 
 
-def run_here(seed: int, iters: int) -> dict:
-    """Every case in this process, on the package it imports."""
+def run_here(seed: int, iters: int, words=None) -> dict:
+    """Every case (of `words`) in this process, on the package it
+    imports."""
     import torch
 
     if not torch.cuda.is_available():
@@ -205,17 +338,20 @@ def run_here(seed: int, iters: int) -> dict:
     _cuda.lib()
     res = {"root": os.path.dirname(os.path.dirname(
         os.path.abspath(linear_tpu_torch.__file__))), "cases": {}}
-    for name, fn in cases(seed):
+    for name, fn, view in cases(seed, words):
         try:
             out = fn()
         except ValueError as e:
             res["cases"][name] = {"refused": str(e)[:120]}
             continue
         torch.cuda.synchronize()
-        n = max(1, iters // 10) if "8192" in name else iters
+        n = max(1, iters // 10) if name == "chain_dp (64, 8192)" else iters
+        parts = {}
         res["cases"][name] = {"ms": time_ms(fn, n),
-                              "device_ms": device_ms(fn, n),
-                              "sha": _digest(out)}
+                              "host_ms": host_ms(fn, n),
+                              "device_ms": device_ms(fn, n, parts),
+                              "device_parts": parts,
+                              "sha": _digest(view(out) if view else out)}
     return res
 
 
@@ -232,6 +368,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=8)
     ap.add_argument("--iters", type=int, default=50)
     ap.add_argument("--out", default=None)
+    ap.add_argument("--cases", nargs="*", default=None,
+                    help="time only the cases whose name holds one of these")
     ap.add_argument("--build-only", action="store_true")
     args = ap.parse_args(argv)
     if args.build_only:
@@ -240,8 +378,12 @@ def main(argv=None) -> int:
         _cuda.build()
         return 0
     if not args.roots:
-        print(json.dumps(run_here(args.seed, args.iters)))
+        print(json.dumps(run_here(args.seed, args.iters, args.cases)))
         return 0
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    print(f"card: {smi}", flush=True)
     order = [os.path.abspath(r) for r in args.roots]
     roots = list(dict.fromkeys(order))
     builds = [_child(r, ["--build-only"]) for r in roots]
@@ -250,7 +392,8 @@ def main(argv=None) -> int:
     turns = []
     for root in order + order[::-1]:
         p = _child(root, ["--seed", str(args.seed), "--iters",
-                          str(args.iters)])
+                          str(args.iters)]
+                   + (["--cases", *args.cases] if args.cases else []))
         line = p.communicate()[0].strip().splitlines()[-1]
         if p.returncode:
             raise SystemExit(f"the turn of {root} failed")
@@ -266,12 +409,12 @@ def main(argv=None) -> int:
                     continue
                 c = t["cases"][name]
                 cells.append("refused" if "refused" in c else
-                             f"{c['ms']:.4f} ms (device {c['device_ms']:.4f}) "
-                             f"sha {c['sha']}")
+                             f"{c['ms']:.4f} ms (device {c['device_ms']:.4f}, "
+                             f"host {c['host_ms']:.4f}) sha {c['sha']}")
             print(f"  {os.path.basename(root)}: " + "; ".join(cells))
     if args.out:
         with open(args.out, "w") as fh:
-            json.dump(turns, fh, indent=1)
+            json.dump({"card": smi, "turns": turns}, fh, indent=1)
     return 0
 
 

@@ -110,9 +110,11 @@ def lib() -> ctypes.CDLL:
             dll.lt_seed_superchunk.restype = ctypes.c_int
             dll.lt_seed_superchunk_scratch_slots.restype = i64
             dll.lt_seed_superchunk_scratch_slots.argtypes = [ctypes.c_int]
+            dll.lt_seed_superchunk_row_words.restype = i64
+            dll.lt_seed_superchunk_row_words.argtypes = [i64]
             dll.lt_seed_superchunk.argtypes = [
                 p, i64, i64, p, i64, p, i64, ctypes.c_int, ctypes.c_int, p, p,
-                p, p]
+                p, p, p]
             dll.lt_filter_extend.restype = ctypes.c_int
             dll.lt_filter_extend.argtypes = [
                 p, i64, i64, p, p, i64, p, p, p, p, i64, i64, i64,
@@ -138,8 +140,10 @@ def lib() -> ctypes.CDLL:
             dll.lt_compact_anchors.argtypes = [
                 p, p, i64, i64, ctypes.c_int, p, p, p]
             dll.lt_sort_anchors.restype = ctypes.c_int
+            dll.lt_sort_anchors_scratch_bytes.restype = i64
+            dll.lt_sort_anchors_scratch_bytes.argtypes = [i64, i64]
             dll.lt_sort_anchors.argtypes = [
-                p, p, i64, i64, ctypes.c_int, ctypes.c_int, p, p, p, p, p, p]
+                p, p, i64, i64, ctypes.c_int, ctypes.c_int, p, p, p, p]
             dll.lt_chain_dp_full.restype = ctypes.c_int
             dll.lt_chain_dp_full_scratch.restype = i64
             dll.lt_chain_dp_full_scratch.argtypes = [i64]
@@ -179,7 +183,8 @@ def seed_superchunk(wire: torch.Tensor, dir_start: torch.Tensor,
     """Launch csrc/seed_superchunk.cu on PyTorch's current stream:
     wire (rows, pad/4 + 8) uint8 -> (rows, m_out + 1) int64. Does not
     synchronise; raises if the launch is refused. Any m_out >= 1: slots
-    past the kernel's 4,096 in shared memory go to a device scratch."""
+    past the kernel's 4,096 in shared memory go to a device scratch, as do
+    the staged bases of rows past 131,072 bases."""
     dev = wire.device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA seeding kernel needs CUDA tensors, got {dev}")
@@ -200,9 +205,13 @@ def seed_superchunk(wire: torch.Tensor, dir_start: torch.Tensor,
              if extra else None)
     g_keep = (torch.empty((extra,), dtype=torch.uint8, device=dev)
               if extra else None)
+    words = rows * dll.lt_seed_superchunk_row_words(row_bytes)
+    g_words = (torch.empty((words,), dtype=torch.int64, device=dev)
+               if words else None)
     _launch("seed_superchunk", dev, dll.lt_seed_superchunk,
             wire.data_ptr(), rows, row_bytes, dir_start.data_ptr(),
             dir_start.numel(), hs.data_ptr(), hs.numel(), int(cap), int(m_out),
+            g_words.data_ptr() if words else None,
             g_anc.data_ptr() if extra else None,
             g_keep.data_ptr() if extra else None, out.data_ptr())
     return out
@@ -523,8 +532,9 @@ def compact_anchors(anc: torch.Tensor, keep: torch.Tensor, m_out: int):
 def sort_anchors(anc: torch.Tensor, keep: torch.Tensor, n_max: int):
     """Launch csrc/sort_anchors.cu: anc (B, ...) int64 and keep of the same
     shape -> (out (B, min(n_max, n)) int64, count (B,) int32), n the slots
-    of a row. The scratch (two (B, n) int64 buffers for the kept items) is
-    freed on return (stream-ordered)."""
+    of a row. The scratch (the kept items, at most n a row, and the chunk
+    counts: lt_sort_anchors_scratch_bytes) is freed on return
+    (stream-ordered)."""
     dev = _cuda_device(anc, "anchor sort")
     if anc.dim() < 1 or keep.shape != anc.shape:
         raise ValueError(f"anchors {tuple(anc.shape)} and keep "
@@ -537,12 +547,12 @@ def sort_anchors(anc: torch.Tensor, keep: torch.Tensor, n_max: int):
     if not 0 < n_max < 1 << 31 or not n < 1 << 31:
         raise ValueError(f"n_max {n_max} or a row of {n} slots out of range")
     n_out = min(int(n_max), n)
-    buf = torch.empty((2, B, n), dtype=torch.int64, device=dev)
-    unk = torch.empty((B, n_out), dtype=torch.int32, device=dev)
+    dll = lib()
+    scratch = torch.empty((-(-dll.lt_sort_anchors_scratch_bytes(B, n) // 8),),
+                          dtype=torch.int64, device=dev)
     out = torch.empty((B, n_out), dtype=torch.int64, device=dev)
     count = torch.empty((B,), dtype=torch.int32, device=dev)
-    _launch("sort_anchors", dev, lib().lt_sort_anchors, af.data_ptr(),
-            kf.data_ptr(), B, n, n_out, int(n_max), buf[0].data_ptr(),
-            buf[1].data_ptr(), unk.data_ptr(), out.data_ptr(),
-            count.data_ptr())
+    _launch("sort_anchors", dev, dll.lt_sort_anchors, af.data_ptr(),
+            kf.data_ptr(), B, n, n_out, int(n_max), scratch.data_ptr(),
+            out.data_ptr(), count.data_ptr())
     return out, count

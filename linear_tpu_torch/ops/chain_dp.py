@@ -48,6 +48,10 @@ the add; every division truncates like C.
                                sort_anchors_reference.
   sort_anchors_reference       its plain PyTorch version: a stable sort of
                                the keys and a gather.
+  sort_anchors_chunked         the kernel's decomposition stated plainly
+                               (for the tests): chunk counts and regions,
+                               the composite items' sorting network, the
+                               unkept fill by the chunks' unkept counts.
 
 ChainsRecords (with root_ptr and f_leaf) are rebuilt on the host from the
 tables by map.chaining.chain_records_from_dp.
@@ -286,6 +290,93 @@ def sort_anchors_reference(anc: torch.Tensor, keep: torch.Tensor, n_max: int):
     key = torch.where(kflat, -_anchor_x(flat), 1 << 62)
     order = torch.sort(key, dim=1, stable=True).indices[:, :n_max]
     return torch.gather(flat, 1, order), n_anchors
+
+
+# csrc/sort_anchors.cu: flags a block of its flag pass, the items a row
+# sorts in registers (more go in place in the row's scratch), and the items
+# of a shared-memory tile there
+SORT_CHUNK = 16384
+SORT_REG_ITEMS = 1024
+SORT_TILE = 8192
+
+
+def sorting_network(items: torch.Tensor) -> torch.Tensor:
+    """The kernel's bitonic network on one row's K int64 items, ascending:
+    for each merge size 2 .. N (N the power of two >= K) a stage pairing
+    mirrored indices of each block, then half-cleaners of halving span;
+    every comparator puts the smaller item at the lower index, and one whose
+    upper index is >= K is skipped (+inf there, which nothing passes). The
+    kernel runs it in registers up to SORT_REG_ITEMS items, and past them
+    the stages of span <= SORT_TILE tile by tile: those touch disjoint
+    tiles, so the order is the same network."""
+    a = items.clone()
+    K = a.shape[0]
+    N = 1 << max(K - 1, 0).bit_length()
+    size = 2
+    while size <= N:
+        half, flip = size // 2, True
+        while half >= 1:
+            t = torch.arange(-(-K // (2 * half)) * half, device=a.device)
+            start = (t // half) * 2 * half
+            lo = start + t % half
+            hi = start + 2 * half - 1 - t % half if flip else lo + half
+            m = hi < K
+            lo, hi = lo[m], hi[m]
+            x, y = a[lo], a[hi]
+            a[lo], a[hi] = torch.minimum(x, y), torch.maximum(x, y)
+            half, flip = (size // 4 if flip else half // 2), False
+        size *= 2
+    return a
+
+
+def sort_anchors_chunked(anc: torch.Tensor, keep: torch.Tensor, n_max: int,
+                         chunk: int = SORT_CHUNK):
+    """csrc/sort_anchors.cu's decomposition of the anchor sort, stated
+    plainly for the tests (the same outputs as sort_anchors_reference):
+    each chunk of `chunk` flags of a row counts its kept slots and lists
+    their items (MASK_X30 - anchor_x) << 32 | flat index (here in flat
+    order; the kernel's order within a chunk is any, the items being
+    distinct); the
+    row's items, gathered by the counts, go through sorting_network (their
+    ascending order is the stable argsort of the keys); the first min(K,
+    n_out) give the anchors; when K < n_out the chunks in order fill the
+    rest with their unkept slots. Returns (out, count, chunk counts (B,
+    chunks) int32, in_registers (B,) bool: K <= SORT_REG_ITEMS, the branch
+    the kernel takes)."""
+    B = anc.shape[0]
+    flat = anc.reshape(B, -1)
+    kflat = keep.reshape(B, -1)
+    n = flat.shape[1]
+    n_out = min(n_max, n)
+    n_chunks = -(-n // chunk)
+    out = torch.empty((B, n_out), dtype=torch.int64, device=flat.device)
+    chunk_kept = torch.zeros((B, n_chunks), dtype=torch.int32)
+    in_registers = torch.zeros(B, dtype=torch.bool)
+    ax = _anchor_x(flat)
+    for b in range(B):
+        regions = []
+        for c in range(n_chunks):
+            f = torch.nonzero(kflat[b, c * chunk: (c + 1) * chunk])[:, 0] \
+                + c * chunk
+            chunk_kept[b, c] = f.numel()
+            regions.append(((MASK_X30 - ax[b, f]) << 32) | f)
+        items = sorting_network(torch.cat(regions))
+        K = items.numel()
+        in_registers[b] = K <= SORT_REG_ITEMS
+        nk = min(K, n_out)
+        out[b, :nk] = flat[b, items[:nk] & 0xFFFFFFFF]
+        col = nk
+        for c in range(n_chunks):
+            if col >= n_out:
+                break
+            s, e = c * chunk, min((c + 1) * chunk, n)
+            if e - s == int(chunk_kept[b, c]):
+                continue
+            u = torch.nonzero(~kflat[b, s:e])[:, 0][: n_out - col] + s
+            out[b, col: col + u.numel()] = flat[b, u]
+            col += u.numel()
+    count = kflat.sum(1).clamp(max=n_max).to(torch.int32)
+    return out, count, chunk_kept, in_registers
 
 
 def sort_anchors(anc: torch.Tensor, keep: torch.Tensor, n_max: int):

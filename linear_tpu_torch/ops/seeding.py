@@ -30,6 +30,8 @@ Only those are defined; probed > m_out means the row overflowed.
 `seed_superchunk` launches the hand-written CUDA kernel
 (csrc/seed_superchunk.cu) for CUDA tensors and runs
 `seed_superchunk_reference`, the plain PyTorch version, for CPU tensors.
+`superchunk_states_from_words` states the kernel's word arithmetic (funnel
+shifts, 2-bit reversal, popcounts) plainly for the tests.
 
 The padded seeding kernels of the multi-process path (the second half of
 this module) keep every probed bucket slot: (B, P, cap) anchors and a keep
@@ -179,15 +181,11 @@ def minimizer_xy_at(genome: torch.Tensor, j: torch.Tensor):
     return xval, yval, (~fwd).to(torch.int64)
 
 
-def seed_superchunk_reference(wire: torch.Tensor, dir_start: torch.Tensor,
-                              hs: torch.Tensor, cap: int,
-                              m_out: int) -> torch.Tensor:
-    """Plain PyTorch version of the fused superchunk seeding (see the module
-    docstring): wire (rows, pad/4 + 8) uint8 -> (rows, m_out + 1) int64.
-    Runs on any device; uint64 values are int64 bit patterns, and every
-    right shift of a value that may have bit 63 set is masked."""
-    dev = wire.device
-    seqs, lens = _unpack_wire(wire)
+def _superchunk_states(seqs: torch.Tensor):
+    """xval, yval, strand and k of every call position k = 35 + 15p of
+    unpacked rows seqs (rows, pad) int64 (see the module docstring): each
+    (rows, P), P = len(range(35, pad, 15))."""
+    dev = seqs.device
     rows, L = seqs.shape
     # zero right padding so every strided base column is a plain slice
     seqs_p = torch.nn.functional.pad(seqs, (0, SPAN + 8))
@@ -218,6 +216,97 @@ def seed_superchunk_reference(wire: torch.Tensor, dir_start: torch.Tensor,
         vr = 3 - torch.gather(seqs_p, 1, kmat + SPAN - WEIGHT - 1 - tsel - i)
         yval = (yval << 2) + torch.where(fwd, vf, vr)
     strand = (~fwd).to(torch.int64)
+    return xval, yval, strand, kmat
+
+
+def superchunk_states_reference(wire: torch.Tensor):
+    """(xval, yval, strand), each (rows, P) int64, of every call position
+    of a wire (rows, pad/4 + 8) uint8, as seed_superchunk_reference
+    computes them."""
+    return _superchunk_states(_unpack_wire(wire)[0])[:3]
+
+
+_LO2 = np.uint64(0x5555555555555555)
+_HI2 = np.uint64(0xAAAAAAAAAAAAAAAA)
+
+
+def _rev2(x: np.ndarray) -> np.ndarray:
+    """The 32 2-bit groups of each uint64 in reverse order."""
+    x = ((x >> np.uint64(2)) & np.uint64(0x3333333333333333)) \
+        | ((x & np.uint64(0x3333333333333333)) << np.uint64(2))
+    x = ((x >> np.uint64(4)) & np.uint64(0x0F0F0F0F0F0F0F0F)) \
+        | ((x & np.uint64(0x0F0F0F0F0F0F0F0F)) << np.uint64(4))
+    return x.byteswap()
+
+
+def _base_sum(x: np.ndarray, nb: int) -> np.ndarray:
+    """Sum of the bases in the low nb 2-bit groups (nb < 32)."""
+    x = x & np.uint64((1 << (2 * nb)) - 1)
+    return (2 * np.bitwise_count(x & _HI2).astype(np.int64)
+            + np.bitwise_count(x & _LO2).astype(np.int64))
+
+
+def superchunk_states_from_words(wire: np.ndarray):
+    """csrc/seed_superchunk.cu's word arithmetic, stated plainly for the
+    tests: (xval, yval, strand), each (rows, P) int64, of every call position
+    k = 35 + 15p < pad of a wire (rows, pad/4 + 8) uint8, from its bases as
+    little-endian 64-bit words (base i at bits 2 (i mod 32) of word i / 32;
+    words past the row read 0). The 21-base window is a funnel shift of two
+    words; its reverse complement the complement, its MSB-first hash the
+    2-bit groups reversed, its base sum two popcounts; at p = 0 the hash
+    window takes b[14..20) in its first six groups. YValue: the four bases
+    after the forward window reversed, or the complement of the four
+    before the reverse one as they lie."""
+    wire = np.ascontiguousarray(wire, dtype=np.uint8)
+    rows, row_bytes = wire.shape
+    pad_bytes = row_bytes - 8
+    nw = -(-pad_bytes // 8)
+    buf = np.zeros((rows, 8 * (nw + 1)), np.uint8)
+    buf[:, :pad_bytes] = wire[:, :pad_bytes]
+    words = buf.view("<u8")  # (rows, nw + 1): the last word reads 0
+
+    def bases_at(i):  # (rows, n) uint64: 32 bases from base i (n or rows, n)
+        i = np.broadcast_to(np.asarray(i, dtype=np.int64),
+                            (rows, np.shape(i)[-1]))
+        q = np.minimum(i >> 5, nw)
+        lo = np.take_along_axis(words, q, axis=1)
+        hi = np.take_along_axis(words, np.minimum(q + 1, nw), axis=1)
+        sh = (2 * (i & 31)).astype(np.uint64)
+        wide = (lo >> sh) | (hi << (np.uint64(64) - sh))
+        return np.where(sh == 0, lo, wide)
+
+    ks = np.arange(FIRST, 4 * pad_bytes, THD_ALPHA, dtype=np.int64)
+    win = bases_at(ks) & np.uint64((1 << (2 * SPAN)) - 1)
+    wsum = _base_sum(win, SPAN)
+    bias = 2 * (_base_sum(bases_at([0]), SPAN - 1)
+                - _base_sum(bases_at([SPAN]), SPAN - 1))
+    mix_mask = np.uint64((1 << (2 * N_MIX)) - 1)
+    wh = win.copy()
+    wh[:, 0] = (win[:, 0] & ~mix_mask) \
+        | (bases_at([SPAN - 1 - N_MIX])[:, 0] & mix_mask)
+    fwd = 2 * wsum - 3 * SPAN + bias > 0
+    h = _rev2(wh) >> np.uint64(64 - 2 * SPAN)
+    rc = ~wh & np.uint64((1 << (2 * SPAN)) - 1)
+    xv, tsel = _minimizer(torch.from_numpy(
+        np.where(fwd, h, rc).astype(np.int64)))
+    tsel = tsel.numpy()
+    yf = _rev2(bases_at(ks + tsel + WEIGHT)) >> np.uint64(56)
+    yr = ~bases_at(ks + SPAN - WEIGHT - 4 - tsel) & np.uint64(0xFF)
+    yval = np.where(fwd, yf, yr).astype(np.int64)
+    return xv.numpy(), yval, (~fwd).astype(np.int64)
+
+
+def seed_superchunk_reference(wire: torch.Tensor, dir_start: torch.Tensor,
+                              hs: torch.Tensor, cap: int,
+                              m_out: int) -> torch.Tensor:
+    """Plain PyTorch version of the fused superchunk seeding (see the module
+    docstring): wire (rows, pad/4 + 8) uint8 -> (rows, m_out + 1) int64.
+    Runs on any device; uint64 values are int64 bit patterns, and every
+    right shift of a value that may have bit 63 set is masked."""
+    dev = wire.device
+    seqs, lens = _unpack_wire(wire)
+    xval, yval, strand, kmat = _superchunk_states(seqs)
+    rows, P = xval.shape
 
     # compact probe: entries of the processed positions take slots in order
     prev = torch.nn.functional.pad(xval[:, :-1], (1, 0))

@@ -586,3 +586,184 @@ def test_windowed_dp_edge_scores_at_branch_edges():
     for score_type in (0, 1):
         out = _windowed_both(arr, cnt, 64, score_type)
         assert (out[1][:, 1] > 0).sum() > 300
+
+
+# ------------------------------------------------- anchor sort, seed kernel
+
+
+def _sort_rows(rng, n, kept_counts):
+    """Rows of n slots with random anchors (strands, x and y fields, some
+    anchor-x ties) and the given numbers of kept slots; a count of -1 keeps
+    each chunk's first and last flag."""
+    from linear_tpu_torch.ops import chain_dp as CD
+
+    B = len(kept_counts)
+    anc = ((rng.integers(0, 2, (B, n)) << 61)
+           | (rng.integers(1 << 21, (1 << 21) + 4096, (B, n)) << 20)
+           | rng.integers(0, 1 << 10, (B, n))).astype(np.int64)
+    keep = np.zeros((B, n), dtype=bool)
+    for b, k in enumerate(kept_counts):
+        if k < 0:
+            edges = np.arange(0, n, CD.SORT_CHUNK)
+            keep[b, np.concatenate([edges, np.minimum(edges + CD.SORT_CHUNK,
+                                                      n) - 1])] = True
+        else:
+            keep[b, rng.choice(n, k, replace=False)] = True
+    return anc, keep
+
+
+def _sort_both(anc, keep, n_max):
+    from linear_tpu_torch.ops import chain_dp as CD
+
+    got = CD.sort_anchors(anc, keep, n_max)
+    want = CD.sort_anchors_reference(anc, keep, n_max)
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(got[0], want[0])
+    return want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_max", [256, 8192, 30000])
+def test_sort_anchors_at_the_shared_capacity(n_max):
+    """Rows of 3 chunks and a ragged tail: K one under, at and one over the
+    1,024 items a row sorts in registers (past them: in place in the
+    scratch) and the 8,192 of a shared-memory tile (past them: a merge in
+    global memory), every slot kept, nothing kept, kept slots on each
+    chunk's first and last flag, and K = n_max - 1, n_max, n_max + 1."""
+    _card()
+    from linear_tpu_torch.ops import chain_dp as CD
+
+    n = 3 * CD.SORT_CHUNK + 77
+    ks = [CD.SORT_TILE - 1, CD.SORT_TILE, CD.SORT_TILE + 1, n, 0, -1, 1023,
+          1024, 1025, 1]
+    ks += [k for k in (n_max - 1, n_max, n_max + 1) if k <= n]
+    anc, keep = _sort_rows(np.random.default_rng(n_max), n, ks)
+    _, count = _sort_both(torch.from_numpy(anc).cuda(),
+                          torch.from_numpy(keep).cuda(), n_max)
+    assert count.tolist()[:4] == [min(k, n_max) for k in ks[:4]]
+
+
+@pytest.mark.cuda
+def test_sort_anchors_all_kept_grid_row():
+    """The scan grid's width (544 positions x cap 352 = 191,488 slots) with
+    every slot kept and few distinct anchor-x: the in-place branch over
+    the whole row."""
+    _card()
+    rng = np.random.default_rng(51)
+    n = 544 * 352
+    anc, keep = _sort_rows(rng, n, [n, 20000])
+    anc[0] = ((rng.integers(1 << 21, (1 << 21) + 32, n) << 20)
+              | rng.integers(0, 32, n)).astype(np.int64)
+    for n_max in (256, 8192):
+        _sort_both(torch.from_numpy(anc).cuda(), torch.from_numpy(keep).cuda(),
+                   n_max)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 5, 8])
+def test_sort_anchors_on_a_keep_view_not_16_aligned(offset):
+    """keep a contiguous view `offset` bytes into its buffer and rows of a
+    width that is no multiple of 16: every row's flags start off a 16-byte
+    boundary, so the flag pass loads ragged heads and tails by bytes."""
+    _card()
+    rng = np.random.default_rng(52 + offset)
+    B, n = 5, 2 * 8192 + 13
+    anc, keep = _sort_rows(rng, n, [300, 0, n, -1, 9000])
+    buf = torch.zeros(B * n + offset, dtype=torch.bool, device="cuda")
+    kv = buf[offset:].view(B, n)
+    kv.copy_(torch.from_numpy(keep))
+    assert kv.data_ptr() % 16
+    for n_max in (256, 8192):
+        _sort_both(torch.from_numpy(anc).cuda(), kv, n_max)
+
+
+def _seed_both(index, w, m_out):
+    from linear_tpu_torch.ops import seeding as SD
+
+    got = SD.seed_superchunk(w, index, m_out).cpu().numpy()
+    want = SD.seed_superchunk_reference(w, index.dir_start, index.hs,
+                                        index.cap, m_out).cpu().numpy()
+    count = want[:, -1] & 0xFFFFFFFF
+    assert np.array_equal(got[:, -1], want[:, -1])
+    for b in range(len(want)):
+        assert np.array_equal(got[b, : count[b]], want[b, : count[b]])
+    return want
+
+
+@pytest.fixture(scope="module")
+def seed_index(genome):
+    _card()
+    from linear_tpu_torch.ops import seeding as SD
+
+    g, _ = genome
+    idx = DI.build_dindex([g], 4)
+    return SD.upload_index(idx.dir, idx.hs, "cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m_out", [1, 4096, 4097, 8192])
+def test_seed_superchunk_pad_131072(genome, seed_index, m_out):
+    """Rows of pad 131,072 (the largest row staged in shared memory) with
+    reads of 100-131 kb, at m_out 1, the 4,096 slots a row keeps in shared
+    memory, one past them, and JAX's default 8,192."""
+    _card()
+    from linear_tpu_torch.ops import seeding as SD
+
+    g, _ = genome
+    rng = np.random.default_rng(53)
+    lens = [131072, 131071, 100000, 120001, 57, 56]
+    reads = [g[p: p + ln].copy() for p, ln in
+             zip(rng.integers(0, len(g) - 131072, len(lens)), lens)]
+    wire, _ = SD.pack_superchunk(reads, 131072, 8)
+    want = _seed_both(seed_index, torch.from_numpy(wire).cuda(), m_out)
+    assert int((want[:, -1] >> 32).max()) > min(m_out, 4097)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pad,offset", [(8192, 0), (4080, 0), (8192, 3),
+                                        (262144, 0)])
+def test_seed_superchunk_row_bytes_and_alignment(genome, seed_index, pad,
+                                                 offset):
+    """Rows of 2,056 bytes (8192 bases: 8-byte aligned, not 16), of 1,028
+    (4,080 bases: the rows after the first are not 8-byte aligned and their
+    last base word is partial), a wire 3 bytes into its buffer, and rows
+    of 262,144 bases (staged in the device scratch), with reads of 55-65
+    bases and reads ending mid-byte."""
+    _card()
+    from linear_tpu_torch.ops import seeding as SD
+
+    g, _ = genome
+    rng = np.random.default_rng(54 + pad + offset)
+    lens = [55, 56, 57, 63, 64, 65, min(pad, 7001), min(pad, 190_001), 3001]
+    reads = [g[p: p + ln].copy() for p, ln in
+             zip(rng.integers(0, len(g) - max(lens), len(lens)), lens)]
+    wire, _ = SD.pack_superchunk(reads, max(pad, 4096), 12)
+    if pad == 4080:
+        wire = np.ascontiguousarray(np.concatenate(
+            [wire[:, : pad // 4], wire[:, -8:]], axis=1))
+    buf = torch.zeros(wire.size + offset, dtype=torch.uint8, device="cuda")
+    w = buf[offset:].view(wire.shape)
+    w.copy_(torch.from_numpy(wire))
+    for m_out in (128, 512):
+        _seed_both(seed_index, w, m_out)
+
+
+@pytest.mark.cuda
+def test_seed_superchunk_both_block_shapes(genome, seed_index):
+    """The same reads in launches of 792 rows and of 1,024 (past the small
+    grid: the 128-thread blocks), reads of 55 bases to the pad: every row
+    equal to the plain version, and a row the same in both launches."""
+    _card()
+    from linear_tpu_torch.ops import seeding as SD
+
+    g, _ = genome
+    rng = np.random.default_rng(55)
+    lens = np.concatenate([[55, 56, 57, 8192], rng.integers(58, 8193, 1020)])
+    reads = [g[p: p + ln].copy() for p, ln in
+             zip(rng.integers(0, len(g) - 8192, len(lens)), lens)]
+    wire, _ = SD.pack_superchunk(reads, 8192, 1024)
+    w = torch.from_numpy(wire).cuda()
+    for m_out in (128, 512):
+        big = _seed_both(seed_index, w, m_out)
+        small = _seed_both(seed_index, w[:792].contiguous(), m_out)
+        assert np.array_equal(big[:792, -1], small[:, -1])

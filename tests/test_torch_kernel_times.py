@@ -48,3 +48,32 @@ def test_band_pairs_fit_the_band():
     # a copy with 10 % substitutions scores well above 0 in the band
     scores = AP.banded_align(a, bpad, nm, 100)
     assert bool((scores > nm[:, 0]).all())
+
+
+def test_seed_corpus_feeds_the_seed_and_sort_cases():
+    """The seed and sort cases' inputs at a small genome on the CPU: the
+    DIndex built by the device build's plain version, reads of about 7 kb
+    (some with N) on the corpus' wire, the scan grid at the corpus cap (544
+    x 352 = 191,488 slots a row), and the seed case's digest view."""
+    from linear_tpu_torch.ops import seeding as SD
+
+    index, reads = KT.seed_corpus(np.random.default_rng(6), 300_000, 24,
+                                  "cpu")
+    assert index.dir_start.numel() == 4 ** 13 + 1 and index.hs.numel() > 1000
+    assert all(6000 < len(r) < 8200 for r in reads)
+    w = KT.seed_inputs(index, reads, 16, KT.CORPUS_PAD)
+    assert tuple(w.shape) == (16, KT.CORPUS_PAD // 4 + 8)
+    seqs, lens = SD._unpack_wire(w)
+    assert lens.tolist() == [min(len(r), KT.CORPUS_PAD) for r in reads[:16]]
+    n_rows = [bool((r == 4).any()) for r in reads[:16]]
+    assert any(n_rows) and not seqs[n_rows].any()
+    res = SD.seed_superchunk(w, index, 128)
+    anc, tail = KT.defined_seeds(res)
+    count = (tail & 0xFFFFFFFF).numpy()
+    assert (tail >> 32).max() > 128 and count.max() > 0
+    for b in range(16):
+        assert not anc[b, count[b]:].any()
+        assert torch.equal(anc[b, : count[b]], res[b, : count[b]])
+    a, keep = KT.sort_inputs(index, reads, 4, KT.CORPUS_PAD, KT.SORT_CAP)
+    assert tuple(a.shape) == (4, 544, 352) and a[0].numel() == 191_488
+    assert 0 < int(keep.sum()) < keep.numel() // 100

@@ -380,6 +380,92 @@ def test_sort_anchors_on_the_jax_seeders_grid(world):
         assert np.array_equal(got_a.numpy(), want_a)
 
 
+def _chunk_rows(kind, n_max, seed=7):
+    """One row a kept count of `kind` on rows of 3 chunks of the kernel and
+    a ragged tail (B = 1): chunk edges (each chunk's first and last flag),
+    none, n_max - 1, n_max, n_max + 1, all, and one under, at and one over
+    the items a row sorts in registers and those of a shared-memory tile."""
+    from linear_tpu_torch.ops import chain_dp as CD
+
+    rng = np.random.default_rng(seed)
+    n = 3 * CD.SORT_CHUNK + 77
+    anc = ((rng.integers(0, 2, (1, n)) << 61)
+           | (rng.integers(1 << 21, (1 << 21) + 2048, (1, n)) << 20)
+           | rng.integers(0, 64, (1, n))).astype(np.int64)
+    keep = np.zeros((1, n), dtype=bool)
+    if kind == "edges":
+        starts = np.arange(0, n, CD.SORT_CHUNK)
+        keep[0, starts] = True
+        keep[0, np.minimum(starts + CD.SORT_CHUNK, n) - 1] = True
+    elif kind == "all":
+        keep[:] = True
+    elif kind != "none":
+        k = {"n_max-1": n_max - 1, "n_max": n_max, "n_max+1": n_max + 1,
+             "reg-1": CD.SORT_REG_ITEMS - 1, "reg": CD.SORT_REG_ITEMS,
+             "reg+1": CD.SORT_REG_ITEMS + 1,
+             "tile-1": CD.SORT_TILE - 1, "tile": CD.SORT_TILE,
+             "tile+1": CD.SORT_TILE + 1}[kind]
+        keep[0, rng.choice(n, k, replace=False)] = True
+    return anc, keep
+
+
+@pytest.mark.parametrize("n_max", [256, 8192])
+@pytest.mark.parametrize("kind", ["edges", "none", "n_max-1", "n_max",
+                                  "n_max+1", "all", "reg-1", "reg", "reg+1",
+                                  "tile-1", "tile", "tile+1"])
+def test_sort_anchors_chunked_matches_jax(kind, n_max):
+    """The kernel's decomposition (sort_anchors_chunked: chunk counts and
+    regions, the sorting network over the composite items, the unkept fill)
+    equal to the plain version and to JAX's sort lines, every column and
+    count; its chunk counts are the kept flags of each chunk, and the rows
+    past the register capacity take the other branch."""
+    from linear_tpu_torch.ops import chain_dp as CD
+
+    anc, keep = _chunk_rows(kind, n_max)
+    want_a, want_n = _jax_sort(anc, keep, n_max)
+    a, k = torch.from_numpy(anc), torch.from_numpy(keep)
+    got_a, got_n, chunk_kept, in_regs = CD.sort_anchors_chunked(a, k, n_max)
+    ref_a, ref_n = CD.sort_anchors_reference(a, k, n_max)
+    assert np.array_equal(got_a.numpy(), want_a)
+    assert np.array_equal(got_n.numpy(), want_n)
+    assert torch.equal(got_a, ref_a) and torch.equal(got_n, ref_n)
+    pad = np.zeros(chunk_kept.shape[1] * CD.SORT_CHUNK, bool)
+    pad[: keep.shape[1]] = keep[0]
+    assert chunk_kept[0].tolist() == pad.reshape(-1, CD.SORT_CHUNK).sum(
+        1).tolist()
+    assert bool(in_regs[0]) == (keep.sum() <= CD.SORT_REG_ITEMS)
+
+
+@pytest.mark.parametrize("chunk", [64, 16])
+def test_sort_anchors_chunked_small_chunks(chunk):
+    """Chunks of 64 and 16 flags (5 and 20 chunks a row of 320 slots):
+    still equal to JAX's sort lines on every grid kind."""
+    from linear_tpu_torch.ops import chain_dp as CD
+
+    for kind in ("few", "many", "ties", "none", "all"):
+        anc, keep = _sort_grid(kind)
+        for n_max in (32, 1000):
+            want_a, want_n = _jax_sort(anc, keep, n_max)
+            got_a, got_n, _, _ = CD.sort_anchors_chunked(
+                torch.from_numpy(anc), torch.from_numpy(keep), n_max,
+                chunk=chunk)
+            assert np.array_equal(got_a.numpy(), want_a)
+            assert np.array_equal(got_n.numpy(), want_n)
+
+
+def test_sorting_network_sorts():
+    """The network against a sort: lengths around powers of two, the
+    scan grid's 191,488 items, and repeated values."""
+    from linear_tpu_torch.ops import chain_dp as CD
+
+    rng = np.random.default_rng(8)
+    for K in (0, 1, 2, 3, 255, 256, 257, 1000, 544 * 352):
+        a = torch.from_numpy(rng.integers(0, 1 << 62, K))
+        assert torch.equal(CD.sorting_network(a), torch.sort(a).values)
+    a = torch.from_numpy(rng.integers(0, 5, 777))
+    assert torch.equal(CD.sorting_network(a), torch.sort(a).values)
+
+
 def test_sort_anchors_takes_one_device():
     from linear_tpu_torch.ops import chain_dp as CD
 

@@ -125,6 +125,66 @@ def test_first_column_edge_cases(world):
                 host.tolist()
 
 
+def _jax_states(wire):
+    """JAX's _minimizer_xy_strided (with its exact mixed first column) on
+    the wire's unpacked bases, as batch_seed_anchors_compact calls it."""
+    b = wire[:, :-8].astype(np.int32)
+    seqs = np.stack([(b >> (2 * i)) & 3 for i in range(4)],
+                    axis=-1).reshape(len(wire), -1)
+    L = seqs.shape[1]
+    ks = np.arange(JSD.SPAN + JSD.THD_ALPHA - 1, L, JSD.THD_ALPHA)
+    seqs_p = jnp.pad(jnp.asarray(seqs), ((0, 0), (0, JSD.SPAN + 8)))
+    xv, yv, st, _ = JSD._minimizer_xy_strided(
+        seqs_p, int(ks[0]), len(ks), JSD.SPAN, JSD.WEIGHT, JSD.THD_ALPHA,
+        int((ks < 2 * JSD.SPAN - 1).sum()))
+    return np.asarray(xv), np.asarray(yv), np.asarray(st)
+
+
+# the seed kernel's word arithmetic at its edges: reads of 55-57 and 63-65
+# bases (the first call position comes in at 57; a window's last word), a
+# read ending mid-byte, the p = 0 mix window (21 T then 40 A: a forward
+# all-A window whose hash keeps b[14..20)), homopolymer starts (nine tied
+# candidates), and rows of pad 131,072
+WORD_CASES = {
+    "short": dict(lens=[55, 56, 57, 63, 64, 65], pad=1024),
+    "mid_byte": dict(lens=[1021, 1022, 1023, 999], pad=1024),
+    "mix_window": dict(lens=[], pad=2048),
+    "pad_131072": dict(lens=[131072, 131071, 70001], pad=131072),
+}
+
+
+@pytest.mark.parametrize("case", sorted(WORD_CASES))
+def test_word_states_match_reference_and_jax(world, case):
+    """superchunk_states_from_words (the kernel's funnel shifts, 2-bit
+    reversal and popcounts) equal to seed_superchunk_reference's states and
+    to JAX's _minimizer_xy_strided at every call position, exactly."""
+    rng, genome, idx, jdev, tdev = world
+    spec = WORD_CASES[case]
+    if case == "mix_window":
+        tail = genome[22000:23000]
+        reads = [np.concatenate([np.full(21, 3, np.uint8),
+                                 np.zeros(40, np.uint8), tail]),
+                 np.concatenate([np.zeros(90, np.uint8), tail]),
+                 np.concatenate([np.full(90, 2, np.uint8), tail]),
+                 seqio.revcomp(np.concatenate([np.zeros(90, np.uint8),
+                                               tail]))]
+    elif case == "pad_131072":
+        big = np.tile(genome, 5)
+        reads = [big[p: p + n] for p, n in zip((0, 7, 30001), spec["lens"])]
+    else:
+        reads = _reads(np.random.default_rng(len(case)), genome,
+                       spec["lens"])
+    wire, _ = SD.pack_superchunk(reads, spec["pad"], len(reads) + 1)
+    got = SD.superchunk_states_from_words(wire)
+    ref = SD.superchunk_states_reference(torch.from_numpy(wire))
+    jax_states = _jax_states(wire)
+    for g, r, j in zip(got, ref, jax_states):
+        assert np.array_equal(g, r.numpy())
+        assert np.array_equal(g, j)
+    if case == "mix_window":  # the p = 0 hash differs from the plain window
+        assert got[0][0, 0] == 0
+
+
 @pytest.mark.parametrize("m_out", [8, 128])
 def test_plain_matches_host_oracle(world, m_out):
     rng, genome, idx, jdev, tdev = world
