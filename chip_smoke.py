@@ -78,8 +78,11 @@ Phases, each of which raises (exit code != 0) on failure:
        with N, on 60-120 kb reads from the genome cut to the pad (no
        corpus read is longer than the pad), and on hand-built reads dense
        with N (n_dense_rows); the compaction
-       kernel on that grid at m_out 1024 and 8192, against its plain
-       version and a torch.sort(stable=True) compaction; the closed-form
+       kernel on that grid at m_out 1024 and 8192, and on hand-built rows
+       (every slot kept, counts m_out - 1, m_out and m_out + 1 whose
+       m_out-th kept slot sits on a chunk edge, a keep view whose rows
+       start off a 16-byte boundary), against its plain version and a
+       torch.sort(stable=True) compaction; the closed-form
        kernel on N-free corpus reads, whole and in MESH_SHARDS xval shards
        whose sum must be the whole grid; all exact;
        (a') seed_anchors_batch (scan, then compaction, m_out 8192) on every
@@ -112,8 +115,8 @@ Phases, each of which raises (exit code != 0) on failure:
        (a) banded_align_scores on the band regions that -a 1's align_cords
        would align for the first BANDED_READS corpus reads (the Python
        engine's cords, mapped on the host; align_regions cuts them), at W
-       = 100 (the -a path's band), 128 (JAX's default) and 600 (past the
-       1,024 diagonals of one thread a diagonal): each launch
+       = 100 (the -a path's band), 128 (JAX's default) and 600 (five
+       warps a pair, one barrier a row): each launch
        exactly equal to its plain version on the card, and the scores of
        the first ALN_ORACLE_READS reads' regions equal to the host traceback's
        (banded_align_cigar_fast);
@@ -208,8 +211,8 @@ MESH_SHARDS = 4
 # first ALN_ORACLE_READS reads' regions held against the host traceback;
 # GAP_ITEMS gap-interval items cut from the corpus genome, the first
 # GAP_ORACLE_ITEMS without overflow held against the host oracle
-# (W 600: 1,200 diagonals, past the 1,024 threads of a block, so a thread
-# owns two); GAP_EDGE_ITEMS items at each shape past the gap kernel's shared
+# (W 600: 1,200 diagonals, past the 256 of one warp a pair, so five warps
+# take a pair); GAP_EDGE_ITEMS items at each shape past the gap kernel's shared
 # tables, and near 2^30
 BANDED_READS, ALN_BAND, BANDED_WS = 512, 100, (100, 128, 600)
 GAP_EDGE_ITEMS = 16
@@ -315,26 +318,36 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int) -> float:
+def device_ms(fn, iters: int):
     """The card's busy time a call of fn (ms): the device time of every
     kernel, copy and fill that torch.profiler traces over iters calls,
     after one untraced call, summed over the device's own events only (an
     aten op's device time repeats its kernels'). The gap to time_ms is the
-    host's share."""
+    host's share. The profiler at times delivers no device event for a
+    window in which fn launched its kernels (seen on the H100 for the
+    banded and sort kernels, not for the same calls in a fresh process); a
+    window without one is traced again, twice at most, then None."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA)
-    return us / 1e3 / iters
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA)
+        if us:
+            return us / 1e3 / iters
+    return None
+
+
+def _ms(x) -> str:
+    return "not traced" if x is None else f"{x:.4f}"
 
 
 def time_once(fn):
@@ -397,7 +410,7 @@ def check_kernel(index, genome, rng):
             f"defined entries {int(defined.sum())}, mismatches {len(bad)}, "
             f"tail mismatches {bad_tail}, N rows {int(n_mask[:len(reads)].sum())}, "
             f"overflow rows {n_over}, max probed {int(probed.max())}; "
-            f"kernel {ms:.4f} ms (card busy {dev_ms:.4f} ms), plain "
+            f"kernel {ms:.4f} ms (card busy {_ms(dev_ms)} ms), plain "
             f"{plain_ms:.4f} ms")
         if bad_tail or len(bad):
             raise AssertionError(f"kernel disagrees with the plain version "
@@ -501,7 +514,7 @@ def _extend_launch(ED, m, reads, hits, pad, C, tag):
     log(f"extension check{tag} (B, pad, H, C, R) = {(B, pad, EXT_H, C, R)}: "
         f"rows with cords {n_ext}, overflow rows {n_ovf}, cords "
         f"{int(want[1].sum())}, equal {same}, max_abs_err {err}; work "
-        f"{json.dumps(work)}; kernel {ms:.4f} ms (device {dev_ms:.4f}), "
+        f"{json.dumps(work)}; kernel {ms:.4f} ms (device {_ms(dev_ms)}), "
         f"plain {plain_ms:.4f} ms")
     if not same:
         raise AssertionError(f"extension kernel disagrees with the plain "
@@ -643,7 +656,7 @@ def check_devbuild(g, threads):
     log(f"devbuild check: genome {len(g)} b, {len(j)} samples, hs "
         f"{len(host.hs)} entries, cap {cap_host}; equal to the host build; "
         f"kernels vs plain equal {same}, max_abs_err {err}; kernels {ms:.4f} "
-        f"ms (device {dev_ms:.4f}), plain {plain_ms:.4f} ms; whole build on "
+        f"ms (device {_ms(dev_ms)}), plain {plain_ms:.4f} ms; whole build on "
         f"the card {t_build:.4f} "
         f"s vs host build {t_host:.4f} s + upload {t_up:.4f} s")
     if not same:
@@ -972,7 +985,7 @@ def check_anchor_sort(name, anc, keep, rng, hand_rows: bool) -> list:
             f"kept {kept} (a row at most {int(kept_rows.max())}), rows "
             f"over n_max {int((kept_rows > n_max).sum())}, every column "
             f"and count equal to the plain version and to the library "
-            f"sort {same}; kernel {ms:.4f} ms (card busy {dev_ms:.4f} ms), "
+            f"sort {same}; kernel {ms:.4f} ms (card busy {_ms(dev_ms)} ms), "
             f"plain {plain_ms:.4f} ms, "
             f"torch.sort(stable=True) + gather {lib_ms:.4f} ms")
         if not same:
@@ -1060,6 +1073,60 @@ def _equal_all(got, want) -> bool:
     return all(torch.equal(a, b) for a, b in zip(got, want))
 
 
+def hand_compact_rows(rng, n: int, m_out: int, chunk: int):
+    """Rows of n slots for the compaction: every slot kept, then kept counts
+    m_out - 1, m_out and m_out + 1 whose m_out-th kept slot is the last flag
+    of the first chunk, then the first of the second (random non-zero
+    anchors)."""
+    rows = [np.ones(n, bool)]
+    for at in (chunk - 1, chunk):
+        for extra in (-1, 0, 1):
+            k = np.zeros(n, bool)
+            k[rng.choice(at, m_out - 1, replace=False)] = True
+            k[at] = extra >= 0
+            if extra > 0:
+                k[int(rng.integers(at + 1, n))] = True
+            rows.append(k)
+    keep = np.stack(rows)
+    return rng.integers(1, 1 << 62, keep.shape).astype(np.int64), keep
+
+
+def check_compact_hand_rows(rng, n: int) -> None:
+    """Phase 9 (a): K3 on hand-built rows of the scan grid's width n and on
+    a keep view whose rows start off a 16-byte boundary, at each m_out of
+    COMPACT_M_OUTS: equal to the plain version and to the stable-sort
+    compaction."""
+    import torch
+
+    from linear_tpu_torch.ops import seeding as SD
+
+    for m_out in COMPACT_M_OUTS:
+        anc, keep = hand_compact_rows(rng, n, m_out, SD.COMPACT_CHUNK)
+        a, k = torch.from_numpy(anc).cuda(), torch.from_numpy(keep).cuda()
+        # the same rows at a width of two chunks and 13 flags, the flags a
+        # view 5 bytes into their buffer
+        w = 2 * SD.COMPACT_CHUNK + 13
+        buf = torch.zeros(keep.shape[0] * w + 5, dtype=torch.bool,
+                          device="cuda")
+        kv = buf[5:].view(keep.shape[0], w)
+        kv.copy_(k[:, :w])
+        for name, args in (("rows", (a, k)),
+                           ("keep view off 16 bytes", (a[:, :w].contiguous(),
+                                                       kv))):
+            got = SD.compact_anchors(*args, m_out)
+            want = SD.compact_anchors_reference(*args, m_out)
+            same = (_equal_all(got, want)
+                    and _equal_all(got, compact_by_sort(*args, m_out)))
+            torch.cuda.synchronize()
+            log(f"compaction check, hand-built {name} (B, n, m_out) = "
+                f"{(args[0].shape[0], args[0].shape[1], m_out)}: counts "
+                f"{got[1].tolist()}, equal to the plain version and to the "
+                f"stable-sort compaction {same}")
+            if not same:
+                raise AssertionError(f"the compaction kernel disagrees on the "
+                                     f"hand-built {name} at m_out {m_out}")
+
+
 def check_padded_seeding(r_fa, idx, genome, rng):
     """Phase 9 (a), (a'), (a'') and (b): the scan (K1), closed-form (K2),
     compaction (K3) and anchor sort kernels against their plain versions
@@ -1135,6 +1202,7 @@ def check_padded_seeding(r_fa, idx, genome, rng):
         same = _equal_all(got, want) and _equal_all(got, lib)
         n_ovf = int((want[1] > m_out).sum())
         ms = time_ms(lambda: SD.compact_anchors(anc, keep, m_out), 20)
+        dev_ms = device_ms(lambda: SD.compact_anchors(anc, keep, m_out), 20)
         plain_ms = time_ms(lambda: SD.compact_anchors_reference(
             anc, keep, m_out), 3)
         lib_ms = time_ms(lambda: compact_by_sort(anc, keep, m_out), 5)
@@ -1142,8 +1210,8 @@ def check_padded_seeding(r_fa, idx, genome, rng):
         log(f"compaction check (B, n, m_out) = {(B, n, m_out)}: kept "
             f"{int(want[1].sum())}, overflow rows {n_ovf}, equal to the plain "
             f"version and to the stable-sort compaction {same}; kernel "
-            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.sort(stable=True) "
-            f"{lib_ms:.4f} ms")
+            f"{ms:.4f} ms (card busy {_ms(dev_ms)} ms), plain {plain_ms:.4f} "
+            f"ms, torch.sort(stable=True) {lib_ms:.4f} ms")
         if not same:
             raise AssertionError(f"the compaction kernel disagrees at m_out "
                                  f"{m_out}")
@@ -1151,10 +1219,12 @@ def check_padded_seeding(r_fa, idx, genome, rng):
         # other slot is read), the rows and counts out; ~3 operations a flag
         kept = int(want[1].sum())
         out["compact"].append({"shape": [B, n, m_out], "ms": ms,
+                               "device_ms": dev_ms,
                                "plain_ms": plain_ms, "library_ms": lib_ms,
                                "max_abs_err": 0, "overflow_rows": n_ovf,
                                **bound(B * n + 8 * kept + B * (8 * m_out + 4),
                                        3 * B * n)})
+    check_compact_hand_rows(rng, anc[0].numel())
     # the anchor sort on that grid, and on the hand-built rows
     out["sort"] = check_anchor_sort(
         "scan grid, corpus reads, every read with N", anc, keep, rng,
@@ -1410,11 +1480,13 @@ def check_banded(g_fa, r_fa, threads):
         same = np.array_equal(scores[W], want)
         err = _max_abs_err([scores[W]], [want])
         ms = time_ms(lambda: AP.banded_align(a, bpad, nm, W), 5)
+        dev_ms = device_ms(lambda: AP.banded_align(a, bpad, nm, W), 5)
         cells = band_cells(packed[2], W)
         log(f"banded alignment check (B, L, KW) = {(len(qry), a.shape[1], 2 * W)}: "
             f"band cells {cells}, scores {int(want.min())}-{int(want.max())}, "
             f"equal to the plain version {same}, max_abs_err {err}; kernel "
-            f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
+            f"{ms:.4f} ms (card busy {_ms(dev_ms)} ms), plain {plain_ms:.4f} "
+            f"ms")
         if not same:
             raise AssertionError(f"the banded alignment kernel disagrees with "
                                  f"the plain version at W = {W}")
@@ -1423,6 +1495,7 @@ def check_banded(g_fa, r_fa, threads):
         # and vertical candidates and their max, the gap chain's max, the
         # end-cell checks)
         results.append({"shape": [len(qry), a.shape[1], 2 * W], "ms": ms,
+                        "device_ms": dev_ms,
                         "plain_ms": plain_ms, "max_abs_err": err,
                         **bound(sum(x.nbytes for x in packed) + 4 * len(qry),
                                 10 * cells)})
@@ -2064,7 +2137,8 @@ def main() -> int:
         entry("compact_anchors", "seed_anchors.cu",
               "linear_tpu/ops/seeding.py:420", seeding["compact_launches"],
               seeding["compact"], seeding["compact"][-1],
-              shapes=seeding["compact"]),
+              shapes=seeding["compact"],
+              device_ms=seeding["compact"][-1]["device_ms"]),
         entry("sort_anchors", "sort_anchors.cu",
               "linear_tpu/parallel/mesh.py:44", mesh["sort_launches"],
               seeding["sort"], seeding["sort"][0], shapes=seeding["sort"],
@@ -2075,7 +2149,8 @@ def main() -> int:
               full_checks[1], shapes=full_checks, path=ENTRY_ONLY),
         entry("banded_align", "banded_align.cu",
               "linear_tpu/ops/align_pallas.py:142", banded_launches, banded,
-              banded[0], shapes=banded, path=ENTRY_ONLY),
+              banded[0], shapes=banded, path=ENTRY_ONLY,
+              device_ms=banded[0]["device_ms"]),
         entry("gap_anchors", "gap_anchors.cu", "linear_tpu/ops/gap_dev.py:76",
               gap_launches, [gap] + gap_edges, gap,
               shapes=[gap] + gap_edges, path=ENTRY_ONLY),

@@ -19,10 +19,11 @@ counterpart is easy to find:
   - `linear_tpu_torch.parallel` the feeder / worker-pool / ordered-drain
                                 pipeline, and the multi-process mesh path
                                 over torch.distributed (dist, mesh, e2e)
-  - `linear_tpu_torch.native`   g++ build of linear_tpu/native's C++ sources
+  - `linear_tpu_torch.native`   g++ build of the port's copy of the C++
+                                runtime (native/src)
 
 It imports torch, numpy and ctypes, never jax or linear_tpu. The C++ runtime
-is shared with linear_tpu by compiling the same sources by path.
+is the port's own byte-for-byte copy of linear_tpu's sources.
 """
 
 __version__ = "0.1.0"

@@ -25,8 +25,9 @@ gap anchors on 512 items at the defaults (1024, 4096, 16, 2048) and on 16
 items near 2^30; the banded alignment on 625 pairs of up to 7,000 bases at
 W 100, 128 and 600; the seed superchunk kernel at (rows, pad, m_out) =
 (1024, 8192, 128) and (256, 8192, 512), and the anchor sort of the scan
-grid (256, 191,488) at n_max 256 and 8192, on a corpus made as chip_smoke.py
-makes its own (seed_corpus). --cases keeps the cases whose name holds one
+grid (256, 191,488) at n_max 256 and 8192 and its compaction (K3) at m_out
+1024 and 8192, on a corpus made as chip_smoke.py makes its own
+(seed_corpus). --cases keeps the cases whose name holds one
 of the words given.
 """
 from __future__ import annotations
@@ -131,6 +132,7 @@ def band_pairs(rng, n: int):
 CORPUS_GENOME, CORPUS_READ_LEN, CORPUS_PAD = 4_600_000, 7000, 8192
 SEED_TIERS = ((1024, 128), (256, 512))
 SORT_B, SORT_CAP, SORT_N_MAXES = 256, 352, (256, 8192)
+COMPACT_M_OUTS = (1024, 8192)
 
 
 def seed_corpus(rng, genome_len: int, n_reads: int, device, threads: int = 8):
@@ -195,8 +197,8 @@ def defined_seeds(res):
 
 
 def seed_sort_cases(seed: int, dev: str = "cuda"):
-    """(name, fn, digest view) of the seed superchunk and anchor sort
-    cases, from their own numpy generator."""
+    """(name, fn, digest view) of the seed superchunk, anchor sort and
+    compaction cases, from their own numpy generator."""
     from linear_tpu_torch.ops import chain_dp as CD
     from linear_tpu_torch.ops import seeding as SD
 
@@ -216,6 +218,10 @@ def seed_sort_cases(seed: int, dev: str = "cuda"):
         out.append((f"sort_anchors ({SORT_B}, {n}) -> {n_max}",
                     lambda n_max=n_max: CD.sort_anchors(anc, keep, n_max),
                     None))
+    for m_out in COMPACT_M_OUTS:
+        out.append((f"compact_anchors ({SORT_B}, {n}) -> {m_out}",
+                    lambda m_out=m_out: SD.compact_anchors(anc, keep, m_out),
+                    None))
     return out
 
 
@@ -228,7 +234,7 @@ def cases(seed: int, words=None):
     out = []
     if wanted("chain_dp", "gap_anchors", "banded_align"):
         out += [c + (None,) for c in _older_cases(seed)]
-    if wanted("seed_superchunk", "sort_anchors"):
+    if wanted("seed_superchunk", "sort_anchors", "compact_anchors"):
         out += seed_sort_cases(seed)
     return [c for c in out if wanted(c[0])]
 

@@ -6,7 +6,7 @@ CIGAR/SAM — either seeding the read itself or taking anchors from the
 device seeding (ops.seeding). For the -b 0 device path it also splits a
 read around the extension: apx_hits runs the first pass up to the
 pre-filter hits, the device extends them (ops.extend_dev), and apx_finish
-takes the cords from there. The library is linear_tpu/native/lt_engine.cpp,
+takes the cords from there. The library is native/src/lt_engine.cpp,
 compiled by linear_tpu_torch.native. LINEAR_TPU_ENGINE=py turns the engine
 off (enabled()): the Python engine (map.pmpfinder) maps the reads instead.
 """

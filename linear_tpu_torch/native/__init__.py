@@ -1,8 +1,9 @@
 """Native (C++) runtime of the port.
 
-The port owns no C++ of its own: it compiles linear_tpu/native's sources by
-path with g++ (the same flags as linear_tpu.native) into
-linear_tpu_torch/_build/, which git ignores:
+The C++ sources live in src/ beside this file, a byte-for-byte copy of the
+JAX package's native sources, so the port builds its engine from its own
+tree. They are compiled with g++ into linear_tpu_torch/_build/, which git
+ignores:
   lt_engine   per-read mapping engine, genome feature + DIndex builders and
               the superchunk wire packer
   lt_seqio    fasta/fastq(.gz) record reader + Dna5 encoding
@@ -25,7 +26,7 @@ import threading
 import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SRC_DIR = os.path.join(os.path.dirname(_PKG), "linear_tpu", "native")
+SRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
 BUILD_DIR = os.path.join(_PKG, "_build")
 _LOCK = threading.Lock()
 _LIBS: dict = {}
@@ -40,7 +41,7 @@ def _stale(so: str, deps: list) -> bool:
 
 
 def build(name: str) -> str:
-    """Path of the up-to-date shared library for linear_tpu/native/<name>.cpp,
+    """Path of the up-to-date shared library for src/<name>.cpp,
     compiled first if missing or older than its sources."""
     src = os.path.join(SRC_DIR, f"{name}.cpp")
     if not os.path.exists(src):

@@ -137,8 +137,10 @@ def lib() -> ctypes.CDLL:
                 p, i64, i64, p, ctypes.c_int, ctypes.c_int, ctypes.c_int, i64,
                 p, i64, p, i64, ctypes.c_int, i64, i64, p, p, p, p]
             dll.lt_compact_anchors.restype = ctypes.c_int
+            dll.lt_compact_anchors_scratch_words.restype = i64
+            dll.lt_compact_anchors_scratch_words.argtypes = [i64, i64]
             dll.lt_compact_anchors.argtypes = [
-                p, p, i64, i64, ctypes.c_int, p, p, p]
+                p, p, i64, i64, ctypes.c_int, p, p, p, p]
             dll.lt_sort_anchors.restype = ctypes.c_int
             dll.lt_sort_anchors_scratch_bytes.restype = i64
             dll.lt_sort_anchors_scratch_bytes.argtypes = [i64, i64]
@@ -150,10 +152,8 @@ def lib() -> ctypes.CDLL:
             dll.lt_chain_dp_full.argtypes = [
                 p, p, i64, i64, i64, i64, ctypes.c_int, p, p, p, p, p]
             dll.lt_banded_align.restype = ctypes.c_int
-            dll.lt_banded_align_scratch.restype = i64
-            dll.lt_banded_align_scratch.argtypes = [ctypes.c_int]
             dll.lt_banded_align.argtypes = [
-                p, p, p, i64, i64, ctypes.c_int, p, p, p]
+                p, p, p, i64, i64, ctypes.c_int, p, p]
             dll.lt_gap_anchors.restype = ctypes.c_int
             dll.lt_gap_anchors_scratch_words.restype = i64
             dll.lt_gap_anchors_scratch_words.argtypes = [
@@ -399,27 +399,25 @@ def chain_dp_full(anchors: torch.Tensor, n_anchors: torch.Tensor,
 def banded_align(a: torch.Tensor, bpad: torch.Tensor, nm: torch.Tensor,
                  W: int) -> torch.Tensor:
     """Launch csrc/banded_align.cu: a (B, L) and bpad (B, L + 2W) uint8,
-    nm (B, 2) int32 -> scores (B,) int32. Any W: past 1,024 diagonals a
-    thread owns several, and a pair's rows go to a device scratch when they
-    pass the shared-memory budget."""
+    nm (B, 2) int32 -> scores (B,) int32. W up to BANDED_MAX_W (16,384):
+    the band lives in the registers of at most 32 warps a pair; L below
+    BANDED_MAX_L (2^25)."""
+    from .align_pallas import BANDED_MAX_L, BANDED_MAX_W
+
     dev = _cuda_device(a, "banded alignment")
     _check(a, "a", torch.uint8, 2, dev)
     _check(bpad, "bpad", torch.uint8, 2, dev)
     _check(nm, "nm", torch.int32, 2, dev)
     B, L = a.shape
-    if not 1 <= W <= 1 << 29 or L < 1:
-        raise ValueError(f"W {W} outside 1..2^29, or L {L} < 1")
+    if not 1 <= W <= BANDED_MAX_W or not 1 <= L < BANDED_MAX_L:
+        raise ValueError(f"W {W} outside 1..{BANDED_MAX_W}, or L {L} out "
+                         "of range")
     if bpad.shape != (B, L + 2 * W) or nm.shape != (B, 2):
         raise ValueError(f"bpad {tuple(bpad.shape)} or nm {tuple(nm.shape)} "
                          f"do not fit a {tuple(a.shape)} at W {W}")
     out = torch.empty((B,), dtype=torch.int32, device=dev)
-    dll = lib()
-    ints = dll.lt_banded_align_scratch(int(W))
-    scratch = (torch.empty((B * ints,), dtype=torch.int32, device=dev)
-               if ints else None)
-    _launch("banded_align", dev, dll.lt_banded_align, a.data_ptr(),
-            bpad.data_ptr(), nm.data_ptr(), B, L, int(W),
-            scratch.data_ptr() if ints else None, out.data_ptr())
+    _launch("banded_align", dev, lib().lt_banded_align, a.data_ptr(),
+            bpad.data_ptr(), nm.data_ptr(), B, L, int(W), out.data_ptr())
     return out
 
 
@@ -510,7 +508,9 @@ def seed_anchors(seqs: torch.Tensor, lens: torch.Tensor,
 
 def compact_anchors(anc: torch.Tensor, keep: torch.Tensor, m_out: int):
     """Launch K3 of csrc/seed_anchors.cu: anc (B, ...) int64 and keep of
-    the same shape -> (out (B, m_out) int64, count (B,) int32)."""
+    the same shape -> (out (B, m_out) int64, count (B,) int32). The scratch
+    (a status word a chunk of 16,384 flags, and the ticket) is freed on
+    return (stream-ordered)."""
     dev = _cuda_device(anc, "compaction")
     if anc.dim() < 1 or keep.shape != anc.shape:
         raise ValueError(f"anchors {tuple(anc.shape)} and keep "
@@ -522,10 +522,14 @@ def compact_anchors(anc: torch.Tensor, keep: torch.Tensor, m_out: int):
     if not 0 < m_out < 1 << 31:
         raise ValueError(f"m_out {m_out} out of range")
     B, n = af.shape
+    dll = lib()
+    scratch = torch.empty((dll.lt_compact_anchors_scratch_words(B, n),),
+                          dtype=torch.int64, device=dev)
     out = torch.empty((B, m_out), dtype=torch.int64, device=dev)
     count = torch.empty((B,), dtype=torch.int32, device=dev)
-    _launch("compact_anchors", dev, lib().lt_compact_anchors, af.data_ptr(),
-            kf.data_ptr(), B, n, int(m_out), out.data_ptr(), count.data_ptr())
+    _launch("compact_anchors", dev, dll.lt_compact_anchors, af.data_ptr(),
+            kf.data_ptr(), B, n, int(m_out), scratch.data_ptr(),
+            out.data_ptr(), count.data_ptr())
     return out, count
 
 

@@ -17,6 +17,10 @@ diagonals; the score is the best cell of row n and column m, at least 0.
   banded_align_reference  the plain PyTorch version: linear_tpu's _ba_kernel
                         row update on one (B, KW) band row at a time, the
                         log-step decayed prefix max included.
+  banded_align_lanes    the kernel's decomposition of a row, stated plainly
+                        for the tests: c diagonals a lane (banded_shape),
+                        the in-lane running max, the scan across lanes and
+                        warps, the second pass.
   banded_align_oracle, banded_align_cigar  the host oracles (copies).
 
 Lane k of row i holds H[i][j] with j = i + k - W. Codes are compared as
@@ -36,6 +40,44 @@ Q_PAD, R_PAD = 7, 9
 
 # launches of the CUDA kernel by banded_align in this process
 launches = 0
+# the widest band the kernel takes: 32 warps of 32 lanes of 32 diagonals;
+# and its longest rows (cells left of the matrix, which it does not mask,
+# stay below every cell inside)
+BANDED_MAX_W = 16384
+BANDED_MAX_L = 1 << 25
+_NEG_INF = -(1 << 30)  # below every candidate + diagonal
+
+
+def banded_shape(W: int) -> tuple:
+    """The kernel's launch shape at W (csrc/banded_align.cu
+    lt_banded_align_shape): (warps a pair, diagonals a lane). One warp up
+    to KW = 256; ceil(KW / 256) warps up to 8,192, ceil(KW / 512) warps of
+    16 diagonals up to 16,384, then 32 warps of 32 (the padded layout)."""
+    KW = 2 * W
+    if not 1 <= W <= BANDED_MAX_W:
+        raise ValueError(f"W {W} outside 1..{BANDED_MAX_W}")
+    if KW > 64 * 256:
+        return 32, 32
+    nw = 1 if KW <= 256 else -(-KW // 256) if KW <= 32 * 256 \
+        else -(-KW // 512)
+    return nw, -(-KW // (32 * nw))
+
+
+def banded_lanes(W: int):
+    """(k0, vl) of each lane of a pair, int64 (P,) tensors: lane g owns the
+    vl diagonals from k0. The exact layout gives the first KW - P (c - 1)
+    lanes c diagonals and the rest c - 1; the padded one (c 1 and 32) gives
+    lane g the diagonals from g c that lie in the band."""
+    KW = 2 * W
+    nw, c = banded_shape(W)
+    P = 32 * nw
+    g = torch.arange(P)
+    if c in (1, 32):
+        k0 = g * c
+        return k0, (KW - k0).clamp(0, c)
+    r = KW - P * (c - 1)
+    return (torch.where(g < r, g * c, r * c + (g - r) * (c - 1)),
+            torch.where(g < r, c, c - 1))
 
 
 def _decayed_prefix_max(m: torch.Tensor, width: int) -> torch.Tensor:
@@ -82,6 +124,74 @@ def banded_align_reference(a: torch.Tensor, bpad: torch.Tensor,
         best = torch.maximum(best, torch.maximum(colm, rown))
         prev = torch.where(ii <= n, row, prev)
     return best[:, 0]
+
+
+def banded_align_lanes(a: torch.Tensor, bpad: torch.Tensor,
+                       nm: torch.Tensor, W: int) -> torch.Tensor:
+    """csrc/banded_align.cu's decomposition, for the tests (the same scores
+    as banded_align_reference). Lane g (warp g // 32) owns vl diagonals
+    from k0 (banded_lanes) in c register slots; slots past vl are pad. A
+    row: the move from above of a lane's last diagonal is the next lane's
+    first cell (NEG at the band's end); pass 1 makes each candidate
+    max(diag + sub, up - 1), 0 at j = 0, NEG in a pad slot, and the lane's
+    running max of v + t; the lanes' maxima (+ k0) are scanned inside each
+    warp and the warps' totals across warps, giving each lane the max of
+    v + k over the diagonals before it; pass 2 makes each cell max(carry -
+    k0, running max) - t. Cells outside 0 <= j <= m are not masked; the
+    best takes column m's cell each row and row n's cells inside the band
+    and the matrix."""
+    B, L = a.shape
+    KW = 2 * W
+    nw, c = banded_shape(W)
+    P = 32 * nw
+    dev = a.device
+    k0, vl = (x.to(dev)[:, None] for x in banded_lanes(W))   # (P, 1)
+    t = torch.arange(c, device=dev)                          # (c,)
+    pad = t >= vl                                            # (P, c)
+    k = k0 + t
+    band_end = (k0[:, 0] + vl[:, 0] >= KW)[None, :]          # (1, P)
+    m = nm[:, 1].to(torch.int64).clamp(max=L + W)
+    n = torch.where(m < 0, 0, nm[:, 0].to(torch.int64).clamp(max=L))
+    m = m[:, None, None]
+    cell = torch.where(~pad & (k - W >= 0) & (k - W <= m), 0,
+                       NEG).to(torch.int64)                  # (B, P, c)
+    # the reference bytes past the pair's L + KW read as 0, as the kernel's
+    # guarded loads do (only pad slots reach them)
+    rpad = torch.nn.functional.pad(bpad.to(torch.int64), (0, KW + P * c))
+    q = a.to(torch.int64)
+    bidx = torch.arange(B, device=dev)[:, None, None]
+    best = torch.zeros((B,), dtype=torch.int64, device=dev)
+    for i in range(1, (int(n.max()) if B else 0) + 1):
+        live = (i <= n)[:, None, None]
+        tlo = (W - i - k0)[None]                             # (1, P, 1)
+        tm = tlo + m
+        tm = torch.where(tm < vl, tm, -1)
+        up_last = torch.nn.functional.pad(cell[:, 1:, 0], (0, 1), value=NEG)
+        up_last = torch.where(band_end, NEG, up_last)        # (B, P)
+        nxt = torch.cat([cell[:, :, 1:], up_last[:, :, None]], dim=2)
+        up = torch.where(t + 1 == vl, up_last[:, :, None], nxt)
+        rb = rpad[bidx, i - 1 + k]
+        sub = torch.where(rb == q[:, i - 1, None, None], S_MATCH, S_MISMATCH)
+        v = torch.maximum(cell + sub, up + S_GAP)
+        v = torch.where(t == tlo, 0, v)
+        v = torch.where(pad, NEG, v)
+        run = torch.cummax(v + t, dim=2).values              # pass 1
+        inc = (run[:, :, -1] + k0[:, 0]).reshape(B, nw, 32)
+        inc = torch.cummax(inc, dim=2).values                # in the warp
+        carry = torch.nn.functional.pad(inc[:, :, :-1], (1, 0),
+                                        value=_NEG_INF)
+        tot = torch.nn.functional.pad(inc[:, :-1, -1], (1, 0),
+                                      value=_NEG_INF)
+        wc = torch.cummax(tot, dim=1).values                 # across warps
+        carry = torch.maximum(carry, wc[:, :, None]).reshape(B, P, 1)
+        h = torch.maximum(carry - k0, run) - t               # pass 2
+        colm = torch.where(t == tm, h, NEG).amax(dim=(1, 2))
+        best = torch.where(live[:, 0, 0], torch.maximum(best, colm), best)
+        cell = torch.where(live, h, cell)
+    j = n[:, None, None] + k - W
+    inside = ~pad & (j >= 0) & (j <= m)
+    best = torch.maximum(best, torch.where(inside, cell, NEG).amax(dim=(1, 2)))
+    return best.to(torch.int32)
 
 
 def banded_align(a: torch.Tensor, bpad: torch.Tensor, nm: torch.Tensor,

@@ -7,7 +7,7 @@
 // read one step per iteration. The plain PyTorch version beside it is
 // linear_tpu_torch/ops/extend_dev.py:filter_extend_reference; the module
 // docstring there states what is computed. The spec both follow is the C++
-// in linear_tpu/native/le_pmp.hpp (filter_hits :249, path_dst_2 :180,
+// in linear_tpu_torch/native/src/le_pmp.hpp (filter_hits :249, path_dst_2 :180,
 // extend_window / previous_window / next_window :36-118).
 //
 // What bounds it on the card: latency, not bytes or operations. Each read

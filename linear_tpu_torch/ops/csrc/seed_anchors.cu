@@ -41,10 +41,33 @@
 //      Then all threads walk the tile's kTile * cap slots in flat order,
 //      so that the big (B, P, cap) writes are coalesced, and each probes
 //      one hs entry.
-//   K3: one block per row. A block-wide exclusive scan of the keep flags,
-//      kItems consecutive flags a thread, carried across tiles, gives each
-//      kept anchor its output slot; the rest of the row is zeroed. Stable
-//      by construction.
+//   K3: a stream of the flags over many blocks a row, one pass. A block
+//      takes a chunk of kCChunk (16,384) flags of a row: B * ceil(n /
+//      kCChunk) blocks (3,072 at (256, 191,488), several waves over the
+//      132 SMs), each thread four 16-byte windows, a warp's 512
+//      contiguous bytes a load, all loads issued before any is used; a row
+//      whose base is not 16-aligned loads its ragged head and tail byte by
+//      byte. A chunk with nothing kept stops at a __syncthreads_or;
+//      otherwise one block scan of the four rounds' kept counts, packed 16
+//      bits apart in one 64-bit word, gives each kept anchor its place in
+//      the chunk in flat order. The chunk's place in its row is the sum of
+//      the kept counts of the chunks before it, found by a decoupled
+//      look-back: blocks take chunks in the order of an atomic ticket (so a
+//      block waits only on chunks that have started; it loads the flags of
+//      chunk blockIdx.x while the ticket is in flight, and again only if
+//      the ticket names another), publish their count at once and their
+//      inclusive prefix once known, and one warp reads 32 predecessors at a
+//      time back to the nearest published prefix. The threads keep only
+//      their counts through the scan and the look-back, and read their
+//      windows again (from L1) to write the kept anchors, so that more
+//      blocks fit an SM. The kept anchors go out in flat order, so the
+//      result is stable by construction. The slots of a row past its count
+//      are zeroed in n_chunks stripes, by the next row's chunk blocks (and
+//      n_chunks more blocks for the last row), each once the row's last
+//      chunk has published the row's count: no block waits on a later
+//      ticket, and no one block zeroes a whole row. The scratch is a
+//      status word a chunk and the ticket (24 KB at (256, 191,488)),
+//      zeroed before each launch.
 // All uint64 arithmetic wraps as in the JAX kernels; right shifts are on
 // unsigned values.
 #include <cstdint>
@@ -66,7 +89,13 @@ constexpr int kInitThreads = 128;  // four reads a pre-pass block
 constexpr int kThreads = 256;
 constexpr int kTile = 64;  // call positions a probe block
 constexpr int kCThreads = 256;
-constexpr int kItems = 8;  // keep flags a thread per K3 tile
+constexpr int kCWin = 4;                         // 16-byte windows a thread
+constexpr int64_t kCChunk = kCThreads * kCWin * 16;  // 16,384 flags a block
+// K3's chunk status words: 0 while unpublished, else a flag over the count
+constexpr uint64_t kAggregate = 1ull << 62;  // the chunk's own count
+constexpr uint64_t kPrefix = 1ull << 63;     // the row's count through it
+constexpr uint64_t kFlags = kAggregate | kPrefix;
+constexpr uint64_t kValue = kAggregate - 1;
 
 // row[i] with i clamped into the row, as JAX's clipped gathers read it
 __device__ __forceinline__ uint64_t clamped(const uint8_t* __restrict__ row,
@@ -332,36 +361,207 @@ probe_kernel(const uint8_t* __restrict__ seqs, int64_t L,
   }
 }
 
-// K3: row b's kept anchors in flat order into out[b, :m_out], zeros after
-// them, and the kept count
+// one 16-byte window of flags at `p` (16-aligned): one load when it lies
+// inside [lo, hi), else byte loads of its part inside
+__device__ __forceinline__ uint4 load_window(uintptr_t p, uintptr_t lo,
+                                             uintptr_t hi) {
+  if (p >= lo && p + 16 <= hi) return *reinterpret_cast<const uint4*>(p);
+  uint32_t w[4] = {0, 0, 0, 0};
+  for (int i = 0; i < 16; i++) {
+    const uintptr_t q = p + i;
+    if (q >= lo && q < hi)
+      w[i >> 2] |= (uint32_t)*reinterpret_cast<const uint8_t*>(q)
+                   << (8 * (i & 3));
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// high bit of each non-zero byte of x
+__device__ __forceinline__ uint32_t nonzero_bytes(uint32_t x) {
+  return (((x & 0x7f7f7f7fu) + 0x7f7f7f7fu) | x) & 0x80808080u;
+}
+
+__device__ __forceinline__ uint64_t status_load(const uint64_t* p) {
+  return *reinterpret_cast<const volatile uint64_t*>(p);
+}
+
+__device__ __forceinline__ void status_store(uint64_t* p, uint64_t v) {
+  *reinterpret_cast<volatile uint64_t*>(p) = v;
+}
+
+// K3's view of chunk c of row b: its flags [s, e) in the row, and the
+// 16-aligned windows [a0, a0 + 16 n_win) that cover them
+struct Chunk {
+  const uint8_t* kr;  // the row's flags
+  uintptr_t lo, hi, a0;
+  int n_win;
+};
+
+__device__ __forceinline__ Chunk chunk_of(const uint8_t* keep, int64_t n,
+                                          int64_t b, int64_t c) {
+  const int64_t s = c * kCChunk;
+  const int64_t e = s + kCChunk < n ? s + kCChunk : n;
+  Chunk k;
+  k.kr = keep + b * n;
+  k.lo = reinterpret_cast<uintptr_t>(k.kr + s);
+  k.hi = reinterpret_cast<uintptr_t>(k.kr + (e > s ? e : s));
+  k.a0 = k.lo & ~(uintptr_t)15;
+  k.n_win = (int)((k.hi - k.a0 + 15) >> 4);
+  return k;
+}
+
+// window r of a thread: j = r * kCThreads + tid for r < kCWin (coalesced,
+// a warp's 512 contiguous bytes a load); the last thread's window kCWin is
+// the one past kCChunk / 16 that a chunk whose start is not 16-aligned
+// has, the last in flat order
+__device__ __forceinline__ int window_of(int r, int tid) {
+  return r < kCWin ? r * kCThreads + tid
+                   : (tid == kCThreads - 1 ? kCWin * kCThreads : 1 << 30);
+}
+
+__device__ __forceinline__ uint4 chunk_window(const Chunk& k, int j) {
+  return j < k.n_win ? load_window(k.a0 + 16 * (uintptr_t)j, k.lo, k.hi)
+                     : make_uint4(0, 0, 0, 0);
+}
+
+__device__ __forceinline__ int kept_in(uint4 w) {
+  return __popc(nonzero_bytes(w.x)) + __popc(nonzero_bytes(w.y))
+         + __popc(nonzero_bytes(w.z)) + __popc(nonzero_bytes(w.w));
+}
+
+// K3: the blocks take tickets t in order; t < B * n_chunks is chunk
+// c = t % n_chunks of row b = t / n_chunks. Each also zeroes stripe c of
+// row b - 1's tail (the last n_chunks tickets that of row B - 1), once that
+// row's last chunk has published the row's count. A block waits only on
+// lower tickets, which have all started. The flags of chunk blockIdx.x are
+// loaded while the ticket is in flight (blocks start in about that order);
+// a block whose ticket differs loads its ticket's chunk again.
 __global__ void __launch_bounds__(kCThreads)
 compact_kernel(const int64_t* __restrict__ anc,
-               const uint8_t* __restrict__ keep, int64_t n, int m_out,
-               int64_t* __restrict__ out, int32_t* __restrict__ count) {
-  using BlockScan = cub::BlockScan<int, kCThreads>;
+               const uint8_t* __restrict__ keep, int64_t B, int64_t n,
+               int64_t n_chunks, int m_out, uint64_t* status,
+               unsigned long long* ticket, int64_t* __restrict__ out,
+               int32_t* __restrict__ count) {
+  using BlockScan = cub::BlockScan<unsigned long long, kCThreads>;
   __shared__ typename BlockScan::TempStorage scan_tmp;
+  __shared__ int64_t s_ticket, s_excl, s_count;
   const int tid = threadIdx.x;
-  const int64_t b = blockIdx.x;
-  const uint8_t* kr = keep + b * n;
-  const int64_t* ar = anc + b * n;
-  int64_t* orow = out + b * (int64_t)m_out;
-  int64_t carry = 0;  // block-uniform: kept flags of earlier tiles
-  for (int64_t t0 = 0; t0 < n; t0 += (int64_t)kCThreads * kItems) {
-    const int64_t i0 = t0 + (int64_t)tid * kItems;
-    int flag[kItems], dst[kItems];
-    for (int i = 0; i < kItems; i++)
-      flag[i] = i0 + i < n ? (kr[i0 + i] != 0) : 0;
-    int total;
-    BlockScan(scan_tmp).ExclusiveSum(flag, dst, total);
-    for (int i = 0; i < kItems; i++) {
-      const int64_t d = carry + dst[i];
-      if (flag[i] && d < m_out) orow[d] = ar[i0 + i];
+  const int lane = tid & 31;
+  const int64_t n_flag_blocks = B * n_chunks;
+  if (tid == 0) s_ticket = (int64_t)atomicAdd(ticket, 1ull);
+  // each round's kept count, the extra window's in the last
+  int cnt[kCWin];
+  auto count_chunk = [&](int64_t t) {
+    const Chunk k = chunk_of(keep, n, t / n_chunks, t % n_chunks);
+    uint4 w[kCWin + 1];
+#pragma unroll
+    for (int r = 0; r <= kCWin; r++)
+      w[r] = chunk_window(k, window_of(r, tid));
+#pragma unroll
+    for (int r = 0; r < kCWin; r++) cnt[r] = kept_in(w[r]);
+    cnt[kCWin - 1] += kept_in(w[kCWin]);
+  };
+  if (blockIdx.x < n_flag_blocks) count_chunk(blockIdx.x);
+  __syncthreads();
+  const int64_t t = s_ticket;
+  const int64_t b = t / n_chunks;
+  const int64_t c = t - b * n_chunks;
+  if (b < B) {
+    if (t != (int64_t)blockIdx.x) count_chunk(t);  // block-uniform
+    // flat order is window order, r-major: one scan of the rounds' counts
+    // packed 16 bits apart (a round keeps at most 4,096 + 16) gives each
+    // round's total and each thread's place in each round
+    unsigned long long pk = 0;
+#pragma unroll
+    for (int r = 0; r < kCWin; r++)
+      pk |= (unsigned long long)cnt[r] << (16 * r);
+    unsigned long long off = 0, agg = 0;
+    // block-uniform: a chunk with nothing kept skips its scan and writes
+    const bool any = __syncthreads_or(pk != 0) != 0;
+    if (any) BlockScan(scan_tmp).ExclusiveSum(pk, off, agg);
+    int total = 0;
+#pragma unroll
+    for (int r = 0; r < kCWin; r++) total += (int)((agg >> (16 * r)) & 0xffff);
+    uint64_t* st = status + b * n_chunks;
+    if (tid < 32) {
+      // publish the chunk's count, then look back over its predecessors,
+      // 32 at a time, nearest first: sum their counts up to the nearest
+      // inclusive prefix (chunk 0 publishes its prefix at once)
+      if (lane == 0)
+        status_store(st + c, (c ? kAggregate : kPrefix) | (uint64_t)total);
+      int64_t excl = 0;
+      for (int64_t p = c - 1; p >= 0; p -= 32) {
+        const int64_t q = p - lane;
+        uint64_t v = kPrefix;  // before chunk 0: a prefix of 0
+        if (q >= 0)
+          do v = status_load(st + q); while (!(v & kFlags));
+        __syncwarp();
+        const unsigned pre = __ballot_sync(0xffffffffu, (v & kPrefix) != 0);
+        const int last = pre ? __ffs(pre) - 1 : 31;
+        int64_t add = lane <= last ? (int64_t)(v & kValue) : 0;
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+          add += __shfl_xor_sync(0xffffffffu, add, o);
+        excl += add;
+        if (pre) break;
+      }
+      if (lane == 0) {
+        if (c) status_store(st + c, kPrefix | (uint64_t)(excl + total));
+        if (c == n_chunks - 1) count[b] = (int32_t)(excl + total);
+        s_excl = excl;
+      }
     }
-    carry += total;
-    __syncthreads();  // scan_tmp is reused by the next tile
+    __syncthreads();
+    const int64_t excl = s_excl;
+    if (pk && excl < m_out) {
+      // the kept anchors in flat order; the windows again (from L1)
+      const Chunk k = chunk_of(keep, n, b, c);
+      const int64_t* ar = anc + b * n;
+      int64_t* orow = out + b * (int64_t)m_out;
+      // flat index within the row of the first byte of window 0
+      const int64_t f_a0 =
+          (int64_t)k.a0 - (int64_t)reinterpret_cast<uintptr_t>(k.kr);
+      int64_t base = excl, d = 0;
+#pragma unroll
+      for (int r = 0; r <= kCWin; r++) {
+        if (r < kCWin) {  // the round's place; the extra window goes on
+          d = base + (int64_t)((off >> (16 * r)) & 0xffff);
+          base += (int64_t)((agg >> (16 * r)) & 0xffff);
+        }
+        const int j = window_of(r, tid);
+        const uint4 w = chunk_window(k, j);
+        const uint32_t words[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+        for (int q = 0; q < 4; q++) {
+          uint32_t mq = nonzero_bytes(words[q]);
+          while (mq && d < m_out) {
+            const int bit = __ffs(mq) - 1;
+            mq &= mq - 1;
+            orow[d++] = ar[f_a0 + 16 * (int64_t)j + 4 * q + (bit >> 3)];
+          }
+        }
+      }
+    }
   }
-  for (int64_t s = carry + tid; s < m_out; s += kCThreads) orow[s] = 0;
-  if (tid == 0) count[b] = (int32_t)carry;
+  // the zeros: stripe c of [0, m_out) of row b - 1, past its count
+  if (b >= 1) {
+    const int64_t zb = b - 1;
+    const int64_t stripe = (m_out + n_chunks - 1) / n_chunks;
+    const int64_t z1 = (c + 1) * stripe < m_out ? (c + 1) * stripe : m_out;
+    int64_t z0 = c * stripe;
+    if (z0 < z1) {
+      if (tid == 0) {
+        const uint64_t* last = status + zb * n_chunks + n_chunks - 1;
+        uint64_t v;
+        do v = status_load(last); while (!(v & kPrefix));
+        s_count = (int64_t)(v & kValue);
+      }
+      __syncthreads();
+      z0 = s_count > z0 ? s_count : z0;
+      int64_t* orow = out + zb * (int64_t)m_out;
+      for (int64_t k = z0 + tid; k < z1; k += kCThreads) orow[k] = 0;
+    }
+  }
 }
 
 }  // namespace
@@ -399,14 +599,31 @@ int lt_seed_anchors(const uint8_t* seqs, int64_t B, int64_t L,
   return (int)cudaGetLastError();
 }
 
+// Scratch words of K3 at (B, n): a status word a chunk, then the ticket.
+int64_t lt_compact_anchors_scratch_words(int64_t B, int64_t n) {
+  const int64_t n_chunks = n > 0 ? (n + kCChunk - 1) / kCChunk : 1;
+  return B * n_chunks + 1;
+}
+
 // K3 on `stream`: anc (B, n) int64, keep (B, n) uint8 -> out (B, m_out)
-// int64, count (B,) int32.
+// int64, count (B,) int32; scratch of lt_compact_anchors_scratch_words(B,
+// n) 8-byte words, zeroed here before the launch.
 int lt_compact_anchors(const int64_t* anc, const uint8_t* keep, int64_t B,
-                       int64_t n, int m_out, int64_t* out, int32_t* count,
-                       void* stream) {
+                       int64_t n, int m_out, void* scratch, int64_t* out,
+                       int32_t* count, void* stream) {
   if (B <= 0) return (int)cudaSuccess;
-  compact_kernel<<<(unsigned)B, kCThreads, 0, (cudaStream_t)stream>>>(
-      anc, keep, n, m_out, out, count);
+  const int64_t n_chunks = n > 0 ? (n + kCChunk - 1) / kCChunk : 1;
+  const int64_t words = lt_compact_anchors_scratch_words(B, n);
+  if (n < 0 || m_out < 1 || (B + 1) * n_chunks > 0x7fffffff)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  uint64_t* status = static_cast<uint64_t*>(scratch);
+  cudaError_t rc = cudaMemsetAsync(status, 0, (size_t)words * 8, st);
+  if (rc != cudaSuccess) return (int)rc;
+  compact_kernel<<<(unsigned)((B + 1) * n_chunks), kCThreads, 0, st>>>(
+      anc, keep, B, n, n_chunks, m_out, status,
+      reinterpret_cast<unsigned long long*>(status + B * n_chunks), out,
+      count);
   return (int)cudaGetLastError();
 }
 

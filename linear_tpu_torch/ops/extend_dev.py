@@ -3,7 +3,7 @@
 Counterpart of linear_tpu.ops.extend_dev (`batch_filter_extend_packed`,
 with `_revcomp_batch`, `_read_feats`, `_serial_rows`, `_sdist`,
 `_filter_hits_batch` and the `_path_dst_2_batch` interpreter). The spec is
-the C++ in linear_tpu/native/le_pmp.hpp: filter_hits (:249), path_dst_2
+the C++ in native/src/le_pmp.hpp: filter_hits (:249), path_dst_2
 (:180) and extend_window / previous_window / next_window (:36-118), with
 the read features of create_features_read (le_feats.hpp:69).
 

@@ -689,6 +689,44 @@ def compact_anchors_reference(anc: torch.Tensor, keep: torch.Tensor,
     return out, kf.sum(1).to(torch.int32)
 
 
+COMPACT_CHUNK = 16384  # flags a K3 block
+
+
+def compact_anchors_chunked(anc: torch.Tensor, keep: torch.Tensor,
+                            m_out: int, chunk: int = COMPACT_CHUNK):
+    """K3's decomposition (csrc/seed_anchors.cu), stated plainly for the
+    tests (the same outputs as compact_anchors_reference): each chunk of
+    `chunk` flags of a row counts its kept slots; its kept anchors go to
+    the row at the sum of the counts of the chunks before it (the
+    look-back), those at or past m_out dropped; the row's count is the
+    last chunk's inclusive sum, and stripe c of ceil(m_out / n_chunks)
+    slots is zeroed from the row's count on by chunk block c."""
+    B = anc.shape[0]
+    af = anc.reshape(B, -1)
+    kf = keep.reshape(B, -1)
+    n = af.shape[1]
+    n_chunks = max(1, -(-n // chunk))
+    out = torch.full((B, m_out), -1, dtype=torch.int64, device=anc.device)
+    count = torch.zeros((B,), dtype=torch.int32, device=anc.device)
+    stripe = -(-m_out // n_chunks)
+    for b in range(B):
+        counts = [int(kf[b, c * chunk: (c + 1) * chunk].sum())
+                  for c in range(n_chunks)]
+        for c in range(n_chunks):
+            excl = sum(counts[:c])
+            if counts[c] and excl < m_out:
+                sl = slice(c * chunk, (c + 1) * chunk)
+                kept = af[b, sl][kf[b, sl]][: m_out - excl]
+                out[b, excl: excl + len(kept)] = kept
+        total = sum(counts)
+        count[b] = total
+        for c in range(n_chunks):
+            z0, z1 = max(total, c * stripe), min((c + 1) * stripe, m_out)
+            if z0 < z1:
+                out[b, z0:z1] = 0
+    return out, count
+
+
 def _seed_device(seqs: torch.Tensor, dir_start: torch.Tensor,
                 hs: torch.Tensor, lens: torch.Tensor) -> torch.device:
     dev = seqs.device

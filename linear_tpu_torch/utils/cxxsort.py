@@ -9,7 +9,7 @@ src/cluster_util.cpp:945; and the gap module's anchor-x sorts). A stable
 sort silently picks a different repeat copy on ties, so every such call
 site routes through here.
 
-The native lt_sort library (linear_tpu/native/lt_sort.cpp, compiled by
+The native lt_sort library (native/src/lt_sort.cpp, compiled by
 linear_tpu_torch.native) sorts an index array with the very same libstdc++
 std::sort and a keys[a] OP keys[b] comparator: the swap sequence, hence the
 tie permutation, is the reference's. A failed build raises; the statement-

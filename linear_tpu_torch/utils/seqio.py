@@ -1,7 +1,7 @@
 """Sequence I/O: fasta/fastq(.gz) records and Dna5 <-> u8 encoding.
 
 Counterpart of linear_tpu.utils.seqio. Records are read by the native C++
-reader (linear_tpu/native/lt_seqio.cpp, built by linear_tpu_torch.native);
+reader (native/src/lt_seqio.cpp, built by linear_tpu_torch.native);
 the port carries no Python parser. Dna5 ordValue encoding: A=0 C=1 G=2 T=3
 N=4 (reference: src/base.cpp:131 loadRecords).
 """

@@ -208,3 +208,48 @@ def test_bands_past_1024_diagonals_match_jax(W):
     assert np.array_equal(got, JAP.banded_align_scores(qry, ref, W=W))
     assert got.tolist() == [AP.banded_align_oracle(q, r, W=W)
                             for q, r in zip(qry, ref)]
+
+
+from test_torch_kernel_edges import banded_edge_pairs  # noqa: E402
+
+
+@pytest.mark.parametrize("W", [1, 15, 16, 17, 31, 32, 33, 100, 513])
+def test_lane_decomposition_matches_jax(W):
+    """banded_align_lanes (the kernel's c diagonals a lane, in-lane running
+    max, scan across lanes and warps, second pass) against JAX's Pallas
+    kernel in interpret mode and the plain version, at band widths around a
+    lane's and a warp's diagonals, on the edge pairs: n = 0, m = 0, a query
+    past m + W, m far past n, identical, all mismatches, N against N."""
+    qry, ref = banded_edge_pairs(np.random.default_rng(W), W)
+    a, bpad, nm = (torch.from_numpy(x) for x in AP.pack_pairs(qry, ref, W))
+    got = AP.banded_align_lanes(a, bpad, nm, W).numpy()
+    assert got.dtype == np.int32
+    assert np.array_equal(got, JAP.banded_align_scores(qry, ref, W=W))
+    assert np.array_equal(got, AP.banded_align_reference(a, bpad, nm, W))
+    assert got[0] == 0 and got[1] == 0 and got[4] == 3 * len(qry[4])
+    assert got[5] == 0 and got[6] == 3 * 50
+
+
+@pytest.mark.parametrize("W,shape", [(1, (1, 1)), (16, (1, 1)), (17, (1, 2)),
+                                     (100, (1, 7)), (128, (1, 8)),
+                                     (129, (2, 5)), (600, (5, 8)),
+                                     (4096, (32, 8)), (4097, (17, 16)),
+                                     (8192, (32, 16)), (8193, (32, 32)),
+                                     (13000, (32, 32)), (16384, (32, 32))])
+def test_banded_shape(W, shape):
+    """The launch shape (warps a pair, diagonals a lane) and the lanes'
+    diagonals: every diagonal of the band owned once, in order; in the
+    exact layout each lane owns c or c - 1 (one pad slot at most), in the
+    padded one (c 1 and 32) whole lanes past the band are pad."""
+    KW = 2 * W
+    nw, c = AP.banded_shape(W)
+    assert (nw, c) == shape
+    k0, vl = AP.banded_lanes(W)
+    assert len(k0) == 32 * nw and int(vl.sum()) == KW
+    owned = torch.cat([torch.arange(int(s), int(s + v))
+                       for s, v in zip(k0, vl)])
+    assert torch.equal(owned, torch.arange(KW))
+    if 1 < c < 32:
+        assert set(vl.tolist()) <= {c, c - 1} and int(vl[0]) == c
+    with pytest.raises(ValueError):
+        AP.banded_shape(AP.BANDED_MAX_W + 1)

@@ -173,4 +173,100 @@ def test_native_build_is_in_the_port_build_dir():
 
     so = native.build("lt_engine")
     assert os.path.dirname(so) == native.BUILD_DIR
-    assert native.SRC_DIR.endswith(os.path.join("linear_tpu", "native"))
+    port = os.path.dirname(os.path.dirname(os.path.abspath(native.__file__)))
+    assert native.SRC_DIR == os.path.join(port, "native", "src")
+    assert os.path.isfile(os.path.join(native.SRC_DIR, "lt_engine.cpp"))
+
+
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_native_sources_are_byte_identical_copies():
+    """The port's C++ sources (linear_tpu_torch/native/src) are the JAX
+    package's, byte for byte: every .cpp and .hpp of linear_tpu/native,
+    and nothing else."""
+    from linear_tpu_torch import native
+
+    jax_dir = os.path.join(_REPO, "linear_tpu", "native")
+    want = sorted(f for f in os.listdir(jax_dir)
+                  if f.endswith((".cpp", ".hpp")))
+    assert sorted(os.listdir(native.SRC_DIR)) == want
+    assert {"lt_engine.cpp", "lt_seqio.cpp", "lt_sort.cpp"} <= set(want)
+    for f in want:
+        with open(os.path.join(jax_dir, f), "rb") as a, \
+                open(os.path.join(native.SRC_DIR, f), "rb") as b:
+            assert a.read() == b.read(), f
+
+
+def _path_into_jax_package(node) -> bool:
+    """A string constant that names a path under linear_tpu/ (not a
+    "linear_tpu/...py:line" label), or "linear_tpu" as one part of a path
+    join."""
+    import re
+
+    v = node.value
+    if not isinstance(v, str) or any(c.isspace() for c in v):
+        return False
+    parts = re.split(r"[/\\]", v)
+    return ("linear_tpu" in parts
+            and not re.fullmatch(r"linear_tpu/[\w/]+\.\w+:\d+[-,:\w]*", v))
+
+
+def test_port_joins_no_path_into_the_jax_package():
+    """No .py file of linear_tpu_torch/ and no line of chip_smoke.py joins
+    a path into linear_tpu/: no string that is such a path, and no
+    os.path.join / Path argument that is the directory's name. (Docstrings
+    and comments may name the JAX functions a kernel replaces.)"""
+    import ast
+    import glob
+
+    files = glob.glob(os.path.join(_REPO, "linear_tpu_torch", "**", "*.py"),
+                      recursive=True)
+    files.append(os.path.join(_REPO, "chip_smoke.py"))
+    bad = []
+    for f in files:
+        with open(f) as fh:
+            tree = ast.parse(fh.read())
+        docs = {id(n.body[0].value) for n in ast.walk(tree)
+                if isinstance(n, (ast.Module, ast.FunctionDef, ast.ClassDef,
+                                  ast.AsyncFunctionDef))
+                and n.body and isinstance(n.body[0], ast.Expr)
+                and isinstance(n.body[0].value, ast.Constant)}
+        for n in ast.walk(tree):
+            if (isinstance(n, ast.Constant) and id(n) not in docs
+                    and _path_into_jax_package(n)):
+                bad.append(f"{os.path.relpath(f, _REPO)}:{n.lineno} "
+                           f"{n.value!r}")
+    assert not bad, bad
+    assert _path_into_jax_package(ast.Constant("linear_tpu"))
+    assert _path_into_jax_package(ast.Constant("linear_tpu/native"))
+    assert not _path_into_jax_package(
+        ast.Constant("linear_tpu/ops/seeding.py:420"))
+
+
+def test_native_build_from_the_port_alone(tmp_path):
+    """A tree that holds linear_tpu_torch/ and no linear_tpu/ builds and
+    loads the port's native libraries from its own sources."""
+    import json
+    import shutil
+    import subprocess
+    import sys
+
+    shutil.copytree(os.path.join(_REPO, "linear_tpu_torch"),
+                    tmp_path / "linear_tpu_torch",
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    code = ("from linear_tpu_torch import native\n"
+            "from linear_tpu_torch.utils import cxxsort\n"
+            "import numpy as np\n"
+            "so = native.build('lt_sort')\n"
+            "native.load('lt_seqio')\n"
+            "k = np.array([3, 1, 2, 1])\n"
+            "print(so, cxxsort.std_sort_perm(k).tolist())\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
+                         env=dict(os.environ, PYTHONPATH=str(tmp_path)),
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-2000:]
+    so, order = res.stdout.split(" ", 1)
+    assert so.startswith(str(tmp_path / "linear_tpu_torch" / "_build"))
+    assert sorted(json.loads(order)[:2]) == [1, 3]
+    assert not (tmp_path / "linear_tpu").exists()

@@ -420,8 +420,8 @@ def test_full_dp_past_the_shared_memory_row():
 @pytest.mark.cuda
 @pytest.mark.parametrize("W", [513, 600, 13000])
 def test_banded_past_1024_diagonals(W):
-    """KW 1,026 (just past one thread a diagonal), 1,200, and 26,000, whose
-    rows pass the shared-memory budget and live in the device scratch."""
+    """KW 1,026 and 1,200 (five warps a pair, seven and eight diagonals a
+    lane) and 26,000 (32 warps of 32 diagonals a lane)."""
     _card()
     from linear_tpu_torch.ops import align_pallas as AP
 
@@ -446,8 +446,8 @@ def test_banded_past_1024_diagonals(W):
 @pytest.mark.cuda
 @pytest.mark.parametrize("W", [1, 16, 100, 512])
 def test_banded_one_diagonal_a_thread(W):
-    """KW 2 to 1,024: a block of round32(KW) threads, one diagonal each,
-    the pair's row in shared memory."""
+    """KW 2 to 1,024: one warp a pair up to KW 256 (one to eight
+    diagonals a lane), four warps of eight at KW 1,024."""
     _card()
     from linear_tpu_torch.ops import align_pallas as AP
 
@@ -767,3 +767,118 @@ def test_seed_superchunk_both_block_shapes(genome, seed_index):
         big = _seed_both(seed_index, w, m_out)
         small = _seed_both(seed_index, w[:792].contiguous(), m_out)
         assert np.array_equal(big[:792, -1], small[:, -1])
+
+
+# ------------------------------------------------- K3 and the banded score
+
+
+def compact_rows(rng, n, m_out, chunk):
+    """Rows of n slots (random non-zero anchors) for the compaction: nothing
+    kept, every slot kept, a random 30 %, each chunk's first and last flag,
+    then, where the row has room, kept counts m_out - 1, m_out and m_out + 1
+    whose m_out-th kept slot is the last flag of chunk 0 and then the first
+    of chunk 1."""
+    rows = [np.zeros(n, bool), np.ones(n, bool), rng.random(n) < 0.3]
+    edges = np.arange(0, n, chunk)
+    k = np.zeros(n, bool)
+    k[np.concatenate([edges, np.minimum(edges + chunk, n) - 1])] = True
+    rows.append(k)
+    for at in (chunk - 1, chunk):
+        if m_out - 1 > at or at + 1 >= n:
+            continue
+        for extra in (-1, 0, 1):
+            k = np.zeros(n, bool)
+            k[rng.choice(at, m_out - 1, replace=False)] = True
+            if extra >= 0:
+                k[at] = True
+            if extra > 0:
+                k[int(rng.integers(at + 1, n))] = True
+            rows.append(k)
+    keep = np.stack(rows)
+    anc = rng.integers(1, 1 << 62, keep.shape).astype(np.int64)
+    return anc, keep
+
+
+def _compact_both(anc, keep, m_out):
+    from linear_tpu_torch.ops import seeding as SD
+
+    before = SD.compact_launches
+    got = SD.compact_anchors(anc, keep, m_out)
+    assert SD.compact_launches == before + 1
+    want = SD.compact_anchors_reference(anc, keep, m_out)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    return want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [16383, 16384, 16385, 3 * 16384 + 77])
+def test_compact_at_chunk_edges(n):
+    """K3 on rows of one chunk less one flag, one chunk, one more, and three
+    chunks and a ragged tail: nothing kept, every slot kept, each chunk's
+    first and last flag, counts m_out - 1, m_out and m_out + 1 whose
+    m_out-th kept slot sits on the boundary of chunks 0 and 1, and m_out
+    past n."""
+    _card()
+    from linear_tpu_torch.ops import seeding as SD
+
+    rng = np.random.default_rng(n)
+    for m_out in (1, 100, 8192, n + 5):
+        anc, keep = compact_rows(rng, n, m_out, SD.COMPACT_CHUNK)
+        _, count = _compact_both(torch.from_numpy(anc).cuda(),
+                                 torch.from_numpy(keep).cuda(), m_out)
+        assert count.tolist()[:2] == [0, n]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 5, 8])
+def test_compact_on_a_keep_view_not_16_aligned(offset):
+    """keep a contiguous view `offset` bytes into its buffer, rows of a
+    width that is no multiple of 16: each row's flags start off a 16-byte
+    boundary, so the chunks load ragged heads and tails by bytes."""
+    _card()
+    from linear_tpu_torch.ops import seeding as SD
+
+    rng = np.random.default_rng(60 + offset)
+    n = 2 * SD.COMPACT_CHUNK + 13
+    anc, keep = compact_rows(rng, n, 300, SD.COMPACT_CHUNK)
+    buf = torch.zeros(keep.size + offset, dtype=torch.bool, device="cuda")
+    kv = buf[offset:].view(keep.shape)
+    kv.copy_(torch.from_numpy(keep))
+    assert kv.data_ptr() % 16
+    for m_out in (256, 8192):
+        _compact_both(torch.from_numpy(anc).cuda(), kv, m_out)
+
+
+def banded_edge_pairs(rng, W):
+    """Pairs at the banded score's edges: an empty query (n = 0), an empty
+    reference (m = 0), a query longer than the reference by more than W
+    (the band leaves the matrix), a reference far longer than the query,
+    identical sequences, all mismatches, N against N, and a mutated pair."""
+    base = rng.integers(0, 4, 90).astype(np.uint8)
+    mut = base.copy()
+    mut[rng.random(len(mut)) < 0.1] = 3
+    qry = [np.zeros(0, np.uint8), base[:40],
+           rng.integers(0, 4, 12 + W + 9).astype(np.uint8), base[:15],
+           base, np.zeros(70, np.uint8), np.full(50, 4, np.uint8), mut]
+    ref = [base[:50], np.zeros(0, np.uint8), base[:12],
+           np.concatenate([rng.integers(0, 4, 200).astype(np.uint8), base]),
+           base.copy(), np.ones(80, np.uint8), np.full(60, 4, np.uint8),
+           np.concatenate([rng.integers(0, 4, 7).astype(np.uint8), base])]
+    return qry, ref
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [1, 15, 16, 17, 31, 32, 33, 100, 513])
+def test_banded_edges(W):
+    """The banded score at band widths around a lane's and a warp's
+    diagonals (one warp a pair up to KW 256, then several with one barrier
+    a row) on the edge pairs: every score equal to the plain version."""
+    _card()
+    from linear_tpu_torch.ops import align_pallas as AP
+
+    qry, ref = banded_edge_pairs(np.random.default_rng(W), W)
+    args = [torch.from_numpy(x).cuda() for x in AP.pack_pairs(qry, ref, W)]
+    before = AP.launches
+    got = AP.banded_align(*args, W)
+    assert AP.launches == before + 1
+    assert torch.equal(got, AP.banded_align_reference(*args, W))

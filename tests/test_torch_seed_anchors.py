@@ -401,3 +401,44 @@ def test_scan_states_closed_matches_jax(world, kind, tail):
     want = JSD._hash_scan_batch(jnp.asarray(seqs.astype(np.int32)), 21)
     for g, w in zip(got, want):
         assert np.array_equal(g.numpy(), np.asarray(w).astype(np.int64))
+
+
+# ------------------------------------------- K3's chunked decomposition
+
+from test_torch_kernel_edges import compact_rows  # noqa: E402
+
+CHUNK = 16
+
+
+@pytest.mark.parametrize("n,m_out", [(CHUNK - 1, 5), (CHUNK, 5),
+                                     (CHUNK + 1, 5), (3 * CHUNK + 5, 5),
+                                     (3 * CHUNK + 5, 16), (3 * CHUNK + 5, 1),
+                                     (CHUNK + 1, 40)])
+def test_compact_chunked_matches_jax(n, m_out):
+    """compact_anchors_chunked (the kernel's chunks, look-back and zero
+    stripes, at a chunk of 16 flags) against JAX's _compact_anchors: rows of
+    a chunk less one flag, one chunk, one more and a ragged 53 (no multiple
+    of 16); nothing kept, every slot kept, each chunk's first and last
+    flag, counts m_out - 1, m_out, m_out + 1 with the m_out-th kept slot on
+    the first chunk edge, and m_out past n. JAX's rows are min(m_out, n)
+    wide; the port's are m_out wide, zero past the kept anchors."""
+    rng = np.random.default_rng(n * 100 + m_out)
+    anc, keep = compact_rows(rng, n, m_out, CHUNK)
+    wc, wn = (np.asarray(t) for t in JSD._compact_anchors(
+        jnp.asarray(anc), jnp.asarray(keep), m_out))
+    gc, gn = SD.compact_anchors_chunked(torch.from_numpy(anc),
+                                        torch.from_numpy(keep), m_out, CHUNK)
+    gc, gn = gc.numpy(), gn.numpy()
+    assert gn.dtype == np.int32 and np.array_equal(gn, wn)
+    assert gn[0] == 0 and gn[1] == n
+    width = min(m_out, n)
+    for b in range(len(gn)):
+        c = min(int(gn[b]), width)
+        assert np.array_equal(gc[b, :c], wc[b, :c])
+        assert not gc[b, c:].any()
+    want = SD.compact_anchors_reference(torch.from_numpy(anc),
+                                        torch.from_numpy(keep), m_out)
+    assert np.array_equal(gc, want[0].numpy())
+    if m_out <= CHUNK - 1 and n > CHUNK:
+        # the rows around m_out sit on the chunk edge as planned
+        assert set(gn[4:].tolist()) == {m_out - 1, m_out, m_out + 1}
