@@ -49,9 +49,11 @@ Phases, each of which raises (exit code != 0) on failure:
      order: every column exactly equal to its plain version on the card,
      and on every row the windowed kernel does not flag equal to the
      windowed tables on [:n]; the windowed DP at W 1, 33 and 128 on the
-     (256, 512) corpus rows, and the full DP at N 12,288 (its rows in the
-     device scratch) on two long-read rows, one chain of 12,288 anchors and
-     a shuffled row, each exactly equal to its plain version;
+     (256, 512) corpus rows, and the full DP at N 12,288 and 20,480 (its
+     tables in the device scratch) on two long-read rows, one chain of N
+     anchors and a shuffled row, each exactly equal to its plain version;
+     the (256, 8192), (4, 12,288) and (4, 20,480) full DP launches with the
+     card's busy time (torch.profiler) beside their CUDA-event times;
   8. the main paths, `python -m linear_tpu_torch filter reads genome -t
      <ncpu> -ot 2` as subprocesses:
        -b 1 in turns with --device cuda, host, host, cuda: all SAM files
@@ -119,14 +121,17 @@ Phases, each of which raises (exit code != 0) on failure:
        warps a pair, one barrier a row): each launch
        exactly equal to its plain version on the card, and the scores of
        the first ALN_ORACLE_READS reads' regions equal to the host traceback's
-       (banded_align_cigar_fast);
+       (banded_align_cigar_fast); then the kernel's wide branch: the first
+       BANDED_WIDE_PAIRS regions cut to 1,000 bases at W = 16,385 (past the
+       register design), and four of them in rows of L = 2^25, each exactly
+       equal to its plain version on the card;
        (b) batch_gap_anchors on GAP_ITEMS items cut from the corpus genome
        (gap_items), some over the cap or over the window limits: count,
        overflow, anchors and keys up to min(count, m_out) exactly equal to
        the plain version on the card, each item's result equal to the
        kernel's, and the first GAP_ORACLE_ITEMS items without overflow
        equal to the host oracle (map.gap's 9-mer streams and
-       g_create_anchors);
+       g_create_anchors); the card's busy time beside the CUDA-event time;
        (b') gap_anchors past its kernel's shared tables (g_max 1,025, r_max
        4,097) and on windows near 2^30, GAP_EDGE_ITEMS items each, against
        the plain version on the card (check_gap_edges);
@@ -188,9 +193,11 @@ EXT_OPS_CHUNK, EXT_OPS_ROW, EXT_OPS_LANE = 4 * 16, 6, 6
 # and 512, which the path runs on this corpus, and 8192, the widest
 CHAIN_B = 256
 # the windowed DP at other lookbacks on the (256, 512) corpus rows, and the
-# full DP past the 11,622 anchors a row that fit a block's shared memory
+# full DP past the 11,622 anchors a row that its first design kept in a
+# block's shared memory, and past the 18,944 of its redesign (the tables in
+# the device scratch)
 CHAIN_WS = (1, 33, 128)
-FULL_WIDE_N = 12288
+FULL_WIDE_NS = (12288, 20480)
 # the Python-engine runs take the first reads of the corpus (on 8 cores the
 # engine maps some 470 reads/s at -b 1 and 65 at -b 0, and -a 1 about 5):
 # the genome stays whole
@@ -215,6 +222,9 @@ MESH_SHARDS = 4
 # take a pair); GAP_EDGE_ITEMS items at each shape past the gap kernel's shared
 # tables, and near 2^30
 BANDED_READS, ALN_BAND, BANDED_WS = 512, 100, (100, 128, 600)
+# the banded kernel's wide branch: W past the register design's 16,384 on
+# the first regions cut to 1,000 bases, and rows of 2^25 bases
+BANDED_WIDE_W, BANDED_WIDE_PAIRS = 16385, 16
 GAP_EDGE_ITEMS = 16
 GAP_EDGE_LIMITS = ((1025, 4096, False), (1024, 4097, False),
                    (1024, 4096, True))
@@ -318,31 +328,32 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int):
-    """The card's busy time a call of fn (ms): the device time of every
-    kernel, copy and fill that torch.profiler traces over iters calls,
-    after one untraced call, summed over the device's own events only (an
-    aten op's device time repeats its kernels'). The gap to time_ms is the
-    host's share. The profiler at times delivers no device event for a
-    window in which fn launched its kernels (seen on the H100 for the
-    banded and sort kernels, not for the same calls in a fresh process); a
-    window without one is traced again, twice at most, then None."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def device_ms(fn, iters: int, launched=None):
+    """The card's busy time a call of fn (ms): kernel_times.device_ms, the
+    device time of every kernel, copy and fill that torch.profiler traces
+    over iters calls after an untraced one, a kernel traced count times
+    counting count / iters launches a call at its mean (one when fewer
+    than half were traced). The gap to time_ms is the host's share. The
+    profiler at times delivers no device event for a window in which fn
+    launched its kernels (seen on the H100 for the banded, sort and full DP
+    kernels, not for the same calls in a fresh process), or fewer than the
+    window launched: a window without a device event is traced again, twice
+    at most, then None. Logs each traced event's count beside the launches
+    the window made by the entry point's counter (`launched`), so that a
+    dropped event shows, and each window that traced none."""
+    from linear_tpu_torch.kernel_times import device_ms as traced
 
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA)
-        if us:
-            return us / 1e3 / iters
+    for window in range(3):
+        counts = {}
+        before = launched() if launched else 0
+        ms = traced(fn, iters, counts=counts)
+        made = ((launched() - before) * iters // (iters + 1)
+                if launched else "not counted")
+        log(f"  device events traced over {iters} calls (kernel launches "
+            f"{made}), window {window + 1}: "
+            + (", ".join(f"{k} {v}" for k, v in counts.items()) or "none"))
+        if ms:
+            return ms
     return None
 
 
@@ -403,7 +414,8 @@ def check_kernel(index, genome, rng):
                              zip(got[:, -1], want[:, -1]) if a != b] + [0])
         n_over = int((probed > m_out).sum())
         ms = time_ms(lambda: SD.seed_superchunk(w, index, m_out), 20)
-        dev_ms = device_ms(lambda: SD.seed_superchunk(w, index, m_out), 20)
+        dev_ms = device_ms(lambda: SD.seed_superchunk(w, index, m_out), 20,
+                           lambda: SD.launches)
         plain_ms = time_ms(lambda: SD.seed_superchunk_reference(
             w, index.dir_start, index.hs, index.cap, m_out), 5)
         log(f"kernel check rows={rows} pad={pad} m_out={m_out}: "
@@ -508,7 +520,8 @@ def _extend_launch(ED, m, reads, hits, pad, C, tag):
     n_ovf = int(want[2].sum())
     n_ext = int((want[1] > 1).sum())
     ms = time_ms(lambda: ED.filter_extend(*args, gf, C), 10)
-    dev_ms = device_ms(lambda: ED.filter_extend(*args, gf, C), 10)
+    dev_ms = device_ms(lambda: ED.filter_extend(*args, gf, C), 10,
+                       lambda: ED.launches)
     plain_ms = time_ms(lambda: ED.filter_extend_reference(
         *args, gf, C, R), 1)
     log(f"extension check{tag} (B, pad, H, C, R) = {(B, pad, EXT_H, C, R)}: "
@@ -651,7 +664,7 @@ def check_devbuild(g, threads):
     err = _max_abs_err(got, want)
     same = all(np.array_equal(a, b) for a, b in zip(got, want))
     ms = time_ms(kernel, 5)
-    dev_ms = device_ms(kernel, 5)
+    dev_ms = device_ms(kernel, 5, lambda: DB.launches)
     plain_ms = time_ms(plain, 2)
     log(f"devbuild check: genome {len(g)} b, {len(j)} samples, hs "
         f"{len(host.hs)} entries, cap {cap_host}; equal to the host build; "
@@ -803,13 +816,15 @@ def check_chain_dp(g_fa, r_fa, genome, threads, rng):
                 n_win_same += all(np.array_equal(x[b, :n], y[b, :n])
                                   for x, y in zip(got, win[:3]))
         ms = time_ms(lambda: CD.chain_dp(a, c), 3 if N > 512 else 10)
+        dev_ms = (device_ms(lambda: CD.chain_dp(a, c), 3,
+                            lambda: CD.full_launches) if N > 512 else None)
         edges = full_dp_edges(a, c)
         log(f"full chain DP check (B, N) = {tuple(a.shape)}, {kind} rows: "
             f"chained columns {int((want[0] >= 0).sum())}, admitted edges "
             f"{edges}, equal to the plain version on every column {same}, "
             f"max_abs_err {err}; equal to the windowed kernel on [:n] of "
             f"{n_win_same} of {n_win} rows it does not flag; kernel {ms:.4f} "
-            f"ms, plain {plain_ms:.4f} ms")
+            f"ms (card busy {_ms(dev_ms)} ms), plain {plain_ms:.4f} ms")
         if not same:
             raise AssertionError(f"the full chain DP kernel disagrees with "
                                  f"the plain version ({kind} rows)")
@@ -819,37 +834,43 @@ def check_chain_dp(g_fa, r_fa, genome, threads, rng):
         # anchors in, three int32 tables out; ~40 integer operations an
         # admitted edge (getApxChainScore and the compare), every column
         full.append({"shape": list(a.shape), "rows": kind, "ms": ms,
-                     "plain_ms": plain_ms, "max_abs_err": err,
+                     "device_ms": dev_ms, "plain_ms": plain_ms,
+                     "max_abs_err": err,
                      **bound(a.numel() * 8 + c.numel() * 4 + 12 * a.numel(),
                              40 * edges)})
-    # past 11,622 anchors a row (20 bytes each in a block's 227 KB of
-    # shared memory) the kernel keeps the row in its device scratch: two
-    # long-read rows and two hand-built ones at N 12,288, one of them a
-    # single chain over all its columns, one shuffled
-    chain = [((600000 - 20 * k - (900000 - 20 * k) + (1 << 20)) << 20)
-             + 900000 - 20 * k for k in range(FULL_WIDE_N)]
-    wide_rows = (long_rows + rows)[:2] + [
-        chain, [chain[k] for k in rng.permutation(3000)]]
-    a, c = on_card(wide_rows, FULL_WIDE_N)[2:]
-    got, ms = time_once(lambda: CD.chain_dp(a, c))
-    want, plain_ms = time_once(lambda: CD.chain_dp_reference(a, c))
-    got = [t.cpu().numpy() for t in got]
-    want = [t.cpu().numpy() for t in want]
-    err = _max_abs_err(got, want)
-    same = all(np.array_equal(x, y) for x, y in zip(got, want))
-    edges = full_dp_edges(a, c)
-    log(f"full chain DP check (B, N) = {tuple(a.shape)}, long, chain and "
-        f"shuffled rows, the rows in the device scratch: chained columns "
-        f"{int((want[0] >= 0).sum())}, admitted edges {edges}, equal {same}, "
-        f"max_abs_err {err}; kernel {ms:.4f} ms (one call), plain "
-        f"{plain_ms:.4f} ms")
-    if not same or want[2][2].max() != FULL_WIDE_N:
-        raise AssertionError("the full chain DP kernel disagrees with the "
-                             "plain version past 11,622 anchors a row")
-    full.append({"shape": list(a.shape), "rows": "long, chain, shuffled",
-                 "ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
-                 **bound(a.numel() * 8 + c.numel() * 4 + 12 * a.numel(),
-                         40 * edges)})
+    # the rows at N 12,288 (past the 11,622 anchors a row that the first
+    # design kept in shared memory) and 20,480 (past the 18,944 of the
+    # redesign: its scratch branch): two long-read rows and two hand-built
+    # ones, one of them a single chain over all its columns, one shuffled
+    for N in FULL_WIDE_NS:
+        chain = [((600000 - 20 * k - (900000 - 20 * k) + (1 << 20)) << 20)
+                 + 900000 - 20 * k for k in range(N)]
+        wide_rows = (long_rows + rows)[:2] + [
+            chain, [chain[k] for k in rng.permutation(3000)]]
+        a, c = on_card(wide_rows, N)[2:]
+        got = CD.chain_dp(a, c)
+        ms = time_ms(lambda: CD.chain_dp(a, c), 3)
+        dev_ms = device_ms(lambda: CD.chain_dp(a, c), 3,
+                           lambda: CD.full_launches)
+        want, plain_ms = time_once(lambda: CD.chain_dp_reference(a, c))
+        got = [t.cpu().numpy() for t in got]
+        want = [t.cpu().numpy() for t in want]
+        err = _max_abs_err(got, want)
+        same = all(np.array_equal(x, y) for x, y in zip(got, want))
+        edges = full_dp_edges(a, c)
+        log(f"full chain DP check (B, N) = {tuple(a.shape)}, long, chain and "
+            f"shuffled rows: chained columns {int((want[0] >= 0).sum())}, "
+            f"admitted edges {edges}, equal {same}, max_abs_err {err}; "
+            f"kernel {ms:.4f} ms (card busy {_ms(dev_ms)} ms), plain "
+            f"{plain_ms:.4f} ms")
+        if not same or want[2][2].max() != N:
+            raise AssertionError(f"the full chain DP kernel disagrees with "
+                                 f"the plain version at {N:,} anchors a row")
+        full.append({"shape": list(a.shape), "rows": "long, chain, shuffled",
+                     "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                     "max_abs_err": err,
+                     **bound(a.numel() * 8 + c.numel() * 4 + 12 * a.numel(),
+                             40 * edges)})
     del windowed, full_in, full_out
     torch.cuda.empty_cache()
     return results, full, full_launches
@@ -858,21 +879,29 @@ def check_chain_dp(g_fa, r_fa, genome, threads, rng):
 def full_dp_edges(a, c, depth: int = 20, dx_depth: int = 300) -> int:
     """The (j, i) pairs that the full DP's mask admits on these rows (JAX's
     eligibility: j < i, j < n, and j >= i - depth or anchor_x[j] -
-    anchor_x[i] < dx_depth), over every column i, counted on the card."""
+    anchor_x[i] < dx_depth), over every column i but the padded ones that
+    the kernel copies (anchor-x and y equal to column i - 1's, i - 1 >=
+    n + depth: their result is the column before's), counted on the card."""
     import torch
 
-    from linear_tpu_torch.ops.chain_dp import _anchor_x
+    from linear_tpu_torch.ops.chain_dp import MASK_Y, _anchor_x
 
     B, N = a.shape
     ax = _anchor_x(a)
+    ay = a & MASK_Y
     jj = torch.arange(N, device=a.device)
-    valid = jj[None, :] < c[:, None].to(torch.int64)
+    n = c[:, None].to(torch.int64)
+    valid = jj[None, :] < n
+    same = torch.zeros_like(valid)
+    same[:, 1:] = (ax[:, 1:] == ax[:, :-1]) & (ay[:, 1:] == ay[:, :-1])
+    copied = same & (jj[None, :] - 1 >= n + max(depth, 0))
     total = 0
     for i0 in range(0, N, 64):
         ii = torch.arange(i0, min(i0 + 64, N), device=a.device)
         ok = ((jj[None, :] < ii[:, None])[None] & valid[:, None, :]
               & ((jj[None, :] >= ii[:, None] - depth)[None]
-                 | (ax[:, None, :] - ax[:, ii, None] < dx_depth)))
+                 | (ax[:, None, :] - ax[:, ii, None] < dx_depth))
+              & ~copied[:, ii, None])
         total += int(ok.sum())
     return total
 
@@ -976,7 +1005,8 @@ def check_anchor_sort(name, anc, keep, rng, hand_rows: bool) -> list:
         torch.cuda.synchronize()
         same = _equal_all(got, want) and _equal_all(got, lib)
         ms = time_ms(lambda: CD.sort_anchors(anc, keep, n_max), 20)
-        dev_ms = device_ms(lambda: CD.sort_anchors(anc, keep, n_max), 20)
+        dev_ms = device_ms(lambda: CD.sort_anchors(anc, keep, n_max), 20,
+                           lambda: CD.sort_launches)
         plain_ms = time_ms(lambda: CD.sort_anchors_reference(
             anc, keep, n_max), 3)
         lib_ms = time_ms(lambda: sort_by_library(anc, keep, n_max), 3)
@@ -1202,7 +1232,8 @@ def check_padded_seeding(r_fa, idx, genome, rng):
         same = _equal_all(got, want) and _equal_all(got, lib)
         n_ovf = int((want[1] > m_out).sum())
         ms = time_ms(lambda: SD.compact_anchors(anc, keep, m_out), 20)
-        dev_ms = device_ms(lambda: SD.compact_anchors(anc, keep, m_out), 20)
+        dev_ms = device_ms(lambda: SD.compact_anchors(anc, keep, m_out), 20,
+                           lambda: SD.compact_launches)
         plain_ms = time_ms(lambda: SD.compact_anchors_reference(
             anc, keep, m_out), 3)
         lib_ms = time_ms(lambda: compact_by_sort(anc, keep, m_out), 5)
@@ -1440,7 +1471,9 @@ def check_banded(g_fa, r_fa, threads):
     reads (the Python engine's cords, mapped on the host), at each W of
     BANDED_WS; each launch against the plain version on the card, and the
     scores of the first ALN_ORACLE_READS reads' regions against the host
-    traceback's. Returns (results, launches of the entry point)."""
+    traceback's; then the wide branch (W 16,385, and rows of 2^25) on the
+    first regions through banded_align. Returns (results, launches of the
+    entry point)."""
     import torch
 
     from linear_tpu_torch.map.align import banded_align_cigar_fast
@@ -1480,7 +1513,8 @@ def check_banded(g_fa, r_fa, threads):
         same = np.array_equal(scores[W], want)
         err = _max_abs_err([scores[W]], [want])
         ms = time_ms(lambda: AP.banded_align(a, bpad, nm, W), 5)
-        dev_ms = device_ms(lambda: AP.banded_align(a, bpad, nm, W), 5)
+        dev_ms = device_ms(lambda: AP.banded_align(a, bpad, nm, W), 5,
+                           lambda: AP.launches)
         cells = band_cells(packed[2], W)
         log(f"banded alignment check (B, L, KW) = {(len(qry), a.shape[1], 2 * W)}: "
             f"band cells {cells}, scores {int(want.min())}-{int(want.max())}, "
@@ -1500,6 +1534,41 @@ def check_banded(g_fa, r_fa, threads):
                         **bound(sum(x.nbytes for x in packed) + 4 * len(qry),
                                 10 * cells)})
         del a, bpad, nm
+    # the wide branch: the first BANDED_WIDE_PAIRS regions cut to 1,000
+    # bases at W 16,385 (past the register design's 16,384), and four of
+    # them in rows of L = 2^25 (past its 2^25 - 1) at the -a band
+    wide_q = [q[:1000] for q in qry[:BANDED_WIDE_PAIRS]]
+    wide_r = [r[:1000] for r in ref[:BANDED_WIDE_PAIRS]]
+    for W, L, k in ((BANDED_WIDE_W, None, BANDED_WIDE_PAIRS),
+                    (ALN_BAND, AP.BANDED_MAX_L, 4)):
+        packed = AP.pack_pairs(wide_q[:k], wide_r[:k], W, L)
+        a, bpad, nm = (torch.from_numpy(x).cuda() for x in packed)
+        got = AP.banded_align(a, bpad, nm, W)
+        want, plain_ms = time_once(
+            lambda: AP.banded_align_reference(a, bpad, nm, W))
+        got, want = got.cpu().numpy(), want.cpu().numpy()
+        same = np.array_equal(got, want)
+        err = _max_abs_err([got], [want])
+        ms = time_ms(lambda: AP.banded_align(a, bpad, nm, W), 3)
+        dev_ms = (device_ms(lambda: AP.banded_align(a, bpad, nm, W), 3,
+                            lambda: AP.launches)
+                  if W == BANDED_WIDE_W else None)
+        cells = band_cells(packed[2], W)
+        log(f"banded alignment check (B, L, KW) = {(k, a.shape[1], 2 * W)}, "
+            f"wide branch: band cells "
+            f"{cells}, scores {int(want.min())}-{int(want.max())}, equal to "
+            f"the plain version {same}, max_abs_err {err}; kernel {ms:.4f} "
+            f"ms (card busy {_ms(dev_ms)} ms), plain {plain_ms:.4f} ms")
+        if not same:
+            raise AssertionError(f"the banded alignment kernel disagrees with "
+                                 f"the plain version at W = {W}, L = "
+                                 f"{a.shape[1]}")
+        results.append({"shape": [k, a.shape[1], 2 * W], "ms": ms,
+                        "device_ms": dev_ms, "plain_ms": plain_ms,
+                        "max_abs_err": err,
+                        **bound(sum(x.nbytes for x in packed) + 4 * k,
+                                10 * cells)})
+        del a, bpad, nm, packed
     t0 = time.time()
     host = np.array([banded_align_cigar_fast(q, r, W=ALN_BAND)[0]
                      for q, r in pairs[:n_aln]])
@@ -1638,6 +1707,9 @@ def check_gap(genome, rng):
             g, kern[0][i, : kern[2][i]].view(np.uint64)))
         for i, g in enumerate(got))
     ms = time_ms(lambda: GD.gap_anchors(*args, g_max, r_max, cap, m_out), 20)
+    dev_ms = device_ms(
+        lambda: GD.gap_anchors(*args, g_max, r_max, cap, m_out), 20,
+        lambda: GD.launches)
     n_ovf = sum(x is None for x in got)
     n_cap = int((want[3] & (want[2] <= m_out) & ~too_long).sum())
     t0 = time.time()
@@ -1653,8 +1725,8 @@ def check_gap(genome, rng):
         f"kernel equal to the plain version {same}, max_abs_err {err}; the "
         f"entry point's items equal to the kernel's {entry_same}; the first "
         f"{len(checked)} items without overflow equal to the host oracle "
-        f"{oracle_same} ({time.time() - t0:.2f} s); kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms")
+        f"{oracle_same} ({time.time() - t0:.2f} s); kernel {ms:.4f} ms "
+        f"(card busy {_ms(dev_ms)} ms), plain {plain_ms:.4f} ms")
     if not (same and entry_same):
         raise AssertionError("the gap anchor kernel disagrees with the plain "
                              "version")
@@ -1670,7 +1742,7 @@ def check_gap(genome, rng):
     # (g_hs_set_anchor, the bounds, the emission key)
     steps = 2 * int(np.log2(g_max))
     result = {"shape": [len(items), g_max, r_max, cap, m_out], "ms": ms,
-              "plain_ms": plain_ms, "max_abs_err": err,
+              "device_ms": dev_ms, "plain_ms": plain_ms, "max_abs_err": err,
               "overflow_items": n_ovf,
               **bound(sum(x.nbytes for x in packed) + 16 * kept
                       + 5 * len(items),
@@ -1726,21 +1798,25 @@ def check_gap_edges(genome, rng) -> list:
         err = _max_abs_err(got_d, want_d)
         ms = time_ms(lambda: GD.gap_anchors(*args, g_max, r_max, cap, m_out),
                      10)
+        dev_ms = (device_ms(
+            lambda: GD.gap_anchors(*args, g_max, r_max, cap, m_out), 10,
+            lambda: GD.launches) if near else None)
         samples, positions, cand = gap_work(packed, g_max, cap)
         kept = int(np.minimum(want[2], m_out).sum())
         tag = "windows near 2^30" if near else "past the shared tables"
         log(f"gap anchors check (B, g_max, r_max) = "
             f"{(len(items), g_max, r_max)}, {tag}: kept anchors "
             f"{int(want[2].sum())}, overflow items {int(want[3].sum())}, "
-            f"equal {same}, max_abs_err {err}; kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms")
+            f"equal {same}, max_abs_err {err}; kernel {ms:.4f} ms (card busy "
+            f"{_ms(dev_ms)} ms), plain {plain_ms:.4f} ms")
         if not same or not kept:
             raise AssertionError(f"the gap anchor kernel disagrees with the "
                                  f"plain version ({tag}, g_max {g_max}, "
                                  f"r_max {r_max})")
         steps = 2 * int(np.ceil(np.log2(g_max)))
         out.append({"shape": [len(items), g_max, r_max, cap, m_out],
-                    "rows": tag, "ms": ms, "plain_ms": plain_ms,
+                    "rows": tag, "ms": ms, "device_ms": dev_ms,
+                    "plain_ms": plain_ms,
                     "max_abs_err": err,
                     **bound(sum(x.nbytes for x in packed) + 16 * kept
                             + 5 * len(items),
@@ -2008,14 +2084,17 @@ def main() -> int:
         f"{index.cap}, built and uploaded in {time.time() - t0:.2f} s")
 
     checks = check_kernel(index, genome, np.random.default_rng(SEED + 1))
+    log(f"phase 4: at {time.time() - t_start:.1f} s")
     del index
     torch.cuda.empty_cache()
     ext_checks = check_extend(g_fa, r_fa, genome, threads,
                               np.random.default_rng(SEED + 5))
     torch.cuda.empty_cache()
     db_check = check_devbuild(g_nf, threads)
+    log(f"phases 5-6: at {time.time() - t_start:.1f} s")
     chain_checks, full_checks, full_launches = check_chain_dp(
         g_fa, r_fa, genome, threads, np.random.default_rng(SEED + 2))
+    log(f"phase 7: at {time.time() - t_start:.1f} s")
 
     # the main paths, in fresh processes (the pipeline forks before CUDA).
     # -b 1 in turns: cuda, host, host, cuda
@@ -2080,7 +2159,9 @@ def main() -> int:
         f"built on the card in {st_nf['index_s']} s with "
         f"{st_nf['build_launches']} build kernel launches")
 
+    log(f"phase 8, native engine runs: at {time.time() - t_start:.1f} s")
     py = python_engine_runs(d, g_fa, r_fa, threads)
+    log(f"phase 8, Python engine runs: at {time.time() - t_start:.1f} s")
 
     # phase 9: the padded seeding kernels and the mesh path
     t9 = time.time()
@@ -2146,14 +2227,16 @@ def main() -> int:
               device_ms=seeding["sort"][0]["device_ms"]),
         entry("chain_dp_full", "chain_dp.cu",
               "linear_tpu/ops/chain_dp.py:86", full_launches, full_checks,
-              full_checks[1], shapes=full_checks, path=ENTRY_ONLY),
+              full_checks[1], shapes=full_checks, path=ENTRY_ONLY,
+              device_ms=full_checks[1]["device_ms"]),
         entry("banded_align", "banded_align.cu",
               "linear_tpu/ops/align_pallas.py:142", banded_launches, banded,
               banded[0], shapes=banded, path=ENTRY_ONLY,
               device_ms=banded[0]["device_ms"]),
         entry("gap_anchors", "gap_anchors.cu", "linear_tpu/ops/gap_dev.py:76",
               gap_launches, [gap] + gap_edges, gap,
-              shapes=[gap] + gap_edges, path=ENTRY_ONLY),
+              shapes=[gap] + gap_edges, path=ENTRY_ONLY,
+              device_ms=gap["device_ms"]),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

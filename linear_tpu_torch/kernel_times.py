@@ -13,17 +13,22 @@ inputs, made from --seed with numpy: "ms" is a call of the entry point by
 CUDA events over --iters calls after a warm one (host work included),
 "host_ms" the host's time to issue a call (the floor of "ms" when the card
 is the faster), "device_ms" the card's busy time a call by torch.profiler
-("device_parts": each kernel's share). "sha" is a digest of the case's
+("device_parts": each kernel's share; "device_events": each kernel's
+traced count over "iters" calls). "sha" is a digest of the case's
 outputs, so two roots that agree show the same one; a
 case that a root refuses (ValueError) reads "refused". It prints a JSON
 line a turn and a table of each root's turns, and writes the card's name
 and power limit (nvidia-smi) with the turns to --out.
 
 The cases: the windowed chain DP on (256, 512) rows at W 1, 33, 64 and 128;
-the full chain DP on the same rows and on (64, 8192) long-read rows; the
-gap anchors on 512 items at the defaults (1024, 4096, 16, 2048) and on 16
-items near 2^30; the banded alignment on 625 pairs of up to 7,000 bases at
-W 100, 128 and 600; the seed superchunk kernel at (rows, pad, m_out) =
+the full chain DP on the same rows, on (64, 8192) and (256, 8192)
+long-read rows and on (4, 12288) and (4, 20480) rows (two long-read rows,
+one chain of 12,288 or 20,480 anchors, 3,000 of them shuffled; at 20,480
+the tables lie in the device scratch); the gap anchors on 512 items at the defaults (1024, 4096,
+16, 2048) and on 16 items near 2^30; the banded alignment on 625 pairs of
+up to 7,000 bases at W 100, 128 and 600 and on 16 of them cut to 1,000
+bases at W 16,385 (the wide branch); the seed superchunk kernel at
+(rows, pad, m_out) =
 (1024, 8192, 128) and (256, 8192, 512), and the anchor sort of the scan
 grid (256, 191,488) at n_max 256 and 8192 and its compaction (K3) at m_out
 1024 and 8192, on a corpus made as chip_smoke.py makes its own
@@ -257,8 +262,21 @@ def _older_cases(seed: int):
     out = [(f"chain_dp_windowed (256, 512) W {W}",
             lambda W=W: CD.chain_dp_windowed(a512, c512, W=W))
            for W in (1, 33, 64, 128)]
+    arr, cnt = pad_rows(wide_rows(rng), WIDE_N)
+    a12k, c12k = torch.from_numpy(arr).to(dev), torch.from_numpy(cnt).to(dev)
+    arr, cnt = pad_rows(wide_rows(np.random.default_rng(seed + 2),
+                                  SCRATCH_N), SCRATCH_N)
+    a20k, c20k = torch.from_numpy(arr).to(dev), torch.from_numpy(cnt).to(dev)
+    # a full launch of the smoke's width, from a generator of its own (the
+    # other cases' inputs stay as they were)
+    arr, cnt = pad_rows(chain_rows(np.random.default_rng(seed + 1), 256, 513,
+                                   8192, 120_000), 8192)
+    a256, c256 = torch.from_numpy(arr).to(dev), torch.from_numpy(cnt).to(dev)
     out += [("chain_dp (256, 512)", lambda: CD.chain_dp(a512, c512)),
-            ("chain_dp (64, 8192)", lambda: CD.chain_dp(a8k, c8k))]
+            ("chain_dp (64, 8192)", lambda: CD.chain_dp(a8k, c8k)),
+            ("chain_dp (256, 8192)", lambda: CD.chain_dp(a256, c256)),
+            (f"chain_dp (4, {WIDE_N})", lambda: CD.chain_dp(a12k, c12k)),
+            (f"chain_dp (4, {SCRATCH_N})", lambda: CD.chain_dp(a20k, c20k))]
     genome = rng.integers(0, 4, 2_000_000).astype(np.uint8)
     for n, near, tag in ((512, False, "512 items"),
                          (16, True, "16 items near 2^30")):
@@ -272,7 +290,37 @@ def _older_cases(seed: int):
                        for x in AP.pack_pairs(qry, ref, W))
         out.append((f"banded_align (625, {a.shape[1]}) W {W}",
                     lambda a=a, b=bpad, m=nm, W=W: AP.banded_align(a, b, m, W)))
+    W = BANDED_WIDE_W
+    a, bpad, nm = (torch.from_numpy(x).to(dev) for x in AP.pack_pairs(
+        [q[:1000] for q in qry[:16]], [r[:1000] for r in ref[:16]], W))
+    out.append((f"banded_align (16, {a.shape[1]}) W {W}",
+                lambda a=a, b=bpad, m=nm: AP.banded_align(a, b, m, W)))
     return out
+
+
+# the full DP's wide cases: past the 11,622 anchors a row that its first
+# design kept in shared memory, and past the 18,944 of its redesign (the
+# tables in the device scratch); and the banded alignment's first W past the
+# register design
+WIDE_N = 12288
+SCRATCH_N = 20480
+BANDED_WIDE_W = 16385
+# cases whose calls take milliseconds: a tenth of the iterations
+SLOW_CASES = ("chain_dp (64, 8192)", "chain_dp (256, 8192)",
+              f"chain_dp (4, {WIDE_N})", f"chain_dp (4, {SCRATCH_N})",
+              f"W {BANDED_WIDE_W}")
+
+
+def wide_rows(rng, n: int = WIDE_N):
+    """The full DP's rows past its old shared-memory limit, as chip_smoke.py
+    builds them: two long-read rows of 4,000-8,192 anchors (chain_rows),
+    one chain of n anchors 20 apart in x and y (every column chained), and
+    3,000 anchors of that chain shuffled (JAX's mask, not the sort, decides
+    there)."""
+    chain = _anchor(600000 - 20 * np.arange(n, dtype=np.int64),
+                    900000 - 20 * np.arange(n, dtype=np.int64))
+    return chain_rows(rng, 2, 4000, 8192, 120_000) + [
+        chain, chain[rng.permutation(3000)]]
 
 
 def time_ms(fn, iters: int) -> float:
@@ -308,10 +356,15 @@ def host_ms(fn, iters: int) -> float:
     return (t1 - t0) * 1e3 / iters
 
 
-def device_ms(fn, iters: int, parts=None) -> float:
+def device_ms(fn, iters: int, parts=None, counts=None) -> float:
     """The card's busy time a call: the device events torch.profiler
-    traces over iters calls, after a warm one. `parts`, a dict, gets each
-    device event's name (its first 48 characters) and its time a call."""
+    traces over iters calls, after a warm one. A kernel traced count times
+    counts count / iters launches a call at its mean; the profiler at times
+    delivers fewer events than a window launched (seen on the H100 for
+    long kernels: one of five), and such a kernel then counts one launch a
+    call. `parts`, a dict, gets each device event's name (its first 48
+    characters) and its time a call; `counts` its traced count over the
+    iters calls, which shows a dropped event."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -323,12 +376,18 @@ def device_ms(fn, iters: int, parts=None) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA]
-    if parts is not None:
-        for e in events:
-            parts[e.key[:48]] = e.self_device_time_total / 1e3 / iters
-    return sum(e.self_device_time_total for e in events) / 1e3 / iters
+    total = 0.0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or not e.count:
+            continue
+        a_call = (e.self_device_time_total / e.count / 1e3
+                  * max(1, round(e.count / iters)))
+        total += a_call
+        if parts is not None:
+            parts[e.key[:48]] = a_call
+        if counts is not None:
+            counts[e.key[:48]] = e.count
+    return total
 
 
 def run_here(seed: int, iters: int, words=None) -> dict:
@@ -351,12 +410,14 @@ def run_here(seed: int, iters: int, words=None) -> dict:
             res["cases"][name] = {"refused": str(e)[:120]}
             continue
         torch.cuda.synchronize()
-        n = max(1, iters // 10) if name == "chain_dp (64, 8192)" else iters
-        parts = {}
+        n = (max(1, iters // 10) if any(w in name for w in SLOW_CASES)
+             else iters)
+        parts, counts = {}, {}
         res["cases"][name] = {"ms": time_ms(fn, n),
                               "host_ms": host_ms(fn, n),
-                              "device_ms": device_ms(fn, n, parts),
+                              "device_ms": device_ms(fn, n, parts, counts),
                               "device_parts": parts,
+                              "device_events": counts, "iters": n,
                               "sha": _digest(view(out) if view else out)}
     return res
 

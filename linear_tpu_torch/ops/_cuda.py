@@ -152,8 +152,10 @@ def lib() -> ctypes.CDLL:
             dll.lt_chain_dp_full.argtypes = [
                 p, p, i64, i64, i64, i64, ctypes.c_int, p, p, p, p, p]
             dll.lt_banded_align.restype = ctypes.c_int
+            dll.lt_banded_align_scratch.restype = i64
+            dll.lt_banded_align_scratch.argtypes = [i64, i64, ctypes.c_int]
             dll.lt_banded_align.argtypes = [
-                p, p, p, i64, i64, ctypes.c_int, p, p]
+                p, p, p, i64, i64, ctypes.c_int, p, p, p]
             dll.lt_gap_anchors.restype = ctypes.c_int
             dll.lt_gap_anchors_scratch_words.restype = i64
             dll.lt_gap_anchors_scratch_words.argtypes = [
@@ -371,8 +373,9 @@ def chain_dp_full(anchors: torch.Tensor, n_anchors: torch.Tensor,
                   depth: int, dx_depth: int, score_type: int):
     """Launch the full DP of csrc/chain_dp.cu: anchors (B, N) int64,
     n_anchors (B,) int32 -> (p2, score, length), each (B, N) int32. Rows
-    wider than 11,622 anchors (20 bytes each in the 227 KB of shared memory
-    a block may take) keep them in a device scratch."""
+    wider than 18,944 anchors (anchor-x, y and score, 12 bytes each, beside
+    the tiles in the 227 KB of shared memory a block may take) keep those
+    tables in a device scratch."""
     dev = _cuda_device(anchors, "chain DP")
     _check(anchors, "anchors", torch.int64, 2, dev)
     _check(n_anchors, "n_anchors", torch.int32, 1, dev)
@@ -399,25 +402,33 @@ def chain_dp_full(anchors: torch.Tensor, n_anchors: torch.Tensor,
 def banded_align(a: torch.Tensor, bpad: torch.Tensor, nm: torch.Tensor,
                  W: int) -> torch.Tensor:
     """Launch csrc/banded_align.cu: a (B, L) and bpad (B, L + 2W) uint8,
-    nm (B, 2) int32 -> scores (B,) int32. W up to BANDED_MAX_W (16,384):
-    the band lives in the registers of at most 32 warps a pair; L below
-    BANDED_MAX_L (2^25)."""
-    from .align_pallas import BANDED_MAX_L, BANDED_MAX_W
+    nm (B, 2) int32 -> scores (B,) int32, any 1 <= W < 2^30 and L >= 1. Up
+    to BANDED_MAX_W (16,384) with L below BANDED_MAX_L (2^25) the band lives
+    in the registers of at most 32 warps a pair; past either the wide kernel
+    takes every pair, each row only on its diagonals inside the matrix, in a
+    ring of min(2W, L + W + 1) + 1 ints a pair in shared memory or, past its
+    budget, in a device scratch freed on return (stream-ordered)."""
+    from .align_pallas import BANDED_WIDE_MAX_W
 
     dev = _cuda_device(a, "banded alignment")
     _check(a, "a", torch.uint8, 2, dev)
     _check(bpad, "bpad", torch.uint8, 2, dev)
     _check(nm, "nm", torch.int32, 2, dev)
     B, L = a.shape
-    if not 1 <= W <= BANDED_MAX_W or not 1 <= L < BANDED_MAX_L:
-        raise ValueError(f"W {W} outside 1..{BANDED_MAX_W}, or L {L} out "
-                         "of range")
+    if not 1 <= W <= BANDED_WIDE_MAX_W or L < 1:
+        raise ValueError(f"W {W} outside 1..{BANDED_WIDE_MAX_W}, or L {L} "
+                         "< 1")
     if bpad.shape != (B, L + 2 * W) or nm.shape != (B, 2):
         raise ValueError(f"bpad {tuple(bpad.shape)} or nm {tuple(nm.shape)} "
                          f"do not fit a {tuple(a.shape)} at W {W}")
     out = torch.empty((B,), dtype=torch.int32, device=dev)
-    _launch("banded_align", dev, lib().lt_banded_align, a.data_ptr(),
-            bpad.data_ptr(), nm.data_ptr(), B, L, int(W), out.data_ptr())
+    dll = lib()
+    ints = dll.lt_banded_align_scratch(B, L, int(W))
+    scratch = (torch.empty((ints,), dtype=torch.int32, device=dev)
+               if ints else None)
+    _launch("banded_align", dev, dll.lt_banded_align, a.data_ptr(),
+            bpad.data_ptr(), nm.data_ptr(), B, L, int(W),
+            scratch.data_ptr() if ints else None, out.data_ptr())
     return out
 
 

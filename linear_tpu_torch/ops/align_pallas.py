@@ -40,16 +40,20 @@ Q_PAD, R_PAD = 7, 9
 
 # launches of the CUDA kernel by banded_align in this process
 launches = 0
-# the widest band the kernel takes: 32 warps of 32 lanes of 32 diagonals;
-# and its longest rows (cells left of the matrix, which it does not mask,
-# stay below every cell inside)
+# where the kernel's branches start: up to BANDED_MAX_W (32 warps of 32
+# lanes of 32 diagonals) on rows below BANDED_MAX_L (cells left of the
+# matrix, which it does not mask, stay below every cell inside) the band
+# lives in registers (banded_shape); past either the wide branch takes the
+# pairs, masking every row as JAX does, up to W of BANDED_WIDE_MAX_W (2W fits
+# an int32). csrc/banded_align.cu (wide_branch) routes the launches.
 BANDED_MAX_W = 16384
 BANDED_MAX_L = 1 << 25
+BANDED_WIDE_MAX_W = (1 << 30) - 1
 _NEG_INF = -(1 << 30)  # below every candidate + diagonal
 
 
 def banded_shape(W: int) -> tuple:
-    """The kernel's launch shape at W (csrc/banded_align.cu
+    """The register branch's launch shape at W (csrc/banded_align.cu
     lt_banded_align_shape): (warps a pair, diagonals a lane). One warp up
     to KW = 256; ceil(KW / 256) warps up to 8,192, ceil(KW / 512) warps of
     16 diagonals up to 16,384, then 32 warps of 32 (the padded layout)."""
@@ -192,6 +196,49 @@ def banded_align_lanes(a: torch.Tensor, bpad: torch.Tensor,
     inside = ~pad & (j >= 0) & (j <= m)
     best = torch.maximum(best, torch.where(inside, cell, NEG).amax(dim=(1, 2)))
     return best.to(torch.int32)
+
+
+def banded_align_ring(a: torch.Tensor, bpad: torch.Tensor,
+                      nm: torch.Tensor, W: int) -> torch.Tensor:
+    """csrc/banded_align.cu's wide kernel, for the tests (the same scores
+    as banded_align_reference). Row i computes only its diagonals inside
+    the matrix, [lo, hi] = [max(0, W - i), min(2W - 1, W - i + m)], and
+    reads row i - 1 from a ring of S = min(2W, m + 1) + 1 cells (m taken
+    at most L + W), diagonal k at k mod S: its own cell (the move along the
+    diagonal) and k + 1's (the move from above, NEG past the band); row i
+    - 1 wrote every one of them but lo's when lo is column 0, whose
+    candidate is 0. The cells are the prefix max of v + k less k, written
+    back into the ring; a band that has left the matrix ends the pair.
+    Row 0's window is 0; the best takes column m's cell each row and row
+    n's cells."""
+    B, L = a.shape
+    KW = 2 * W
+    q, r = a.to(torch.int64).cpu(), bpad.to(torch.int64).cpu()
+    out = torch.zeros((B,), dtype=torch.int32)
+    for b in range(B):
+        n, m = min(int(nm[b, 0]), L), int(nm[b, 1])
+        S = min(KW, max(0, min(m, L + W)) + 1) + 1
+        ring = torch.full((S,), NEG, dtype=torch.int64)
+        ring[(W + torch.arange(max(0, min(W, m + 1)))) % S] = 0
+        best = 0
+        for i in range(1, n + 1):
+            lo, hi = max(0, W - i), min(KW - 1, W - i + m)
+            if hi < lo:
+                break
+            k = torch.arange(lo, hi + 1)
+            up = torch.where(k + 1 < KW, ring[(k + 1) % S], NEG)
+            sub = torch.where(r[b, i - 1 + k] == q[b, i - 1], S_MATCH,
+                              S_MISMATCH)
+            v = torch.maximum(ring[k % S] + sub, up + S_GAP)
+            v = torch.where(i + k == W, 0, v)
+            cell = torch.cummax(v + k, dim=0).values - k
+            ring[k % S] = cell
+            if i == n:
+                best = max(best, int(cell.max()))
+            if W - i + m <= hi:  # column m is inside the window
+                best = max(best, int(cell[W - i + m - lo]))
+        out[b] = best
+    return out
 
 
 def banded_align(a: torch.Tensor, bpad: torch.Tensor, nm: torch.Tensor,

@@ -37,6 +37,12 @@ the add; every division truncates like C.
   chain_dp_reference           its plain PyTorch version: column i's edge
                                scores and eligibility inside the loop over
                                i, in O(B N) memory.
+  chain_dp_split               the kernel's decomposition stated plainly
+                               (for the tests): column i's max split into
+                               a near part (the last D columns, key_max)
+                               and a far part (j < i - D), the far part
+                               winning a tie; padded columns equal to the
+                               one before them copy it; lengths from p2.
 
   sort_anchors                 the sort that feeds the DP on the mesh path
                                (the sort lines of linear_tpu.parallel.mesh's
@@ -159,6 +165,83 @@ def chain_dp_reference(anchors: torch.Tensor, n_anchors: torch.Tensor,
         length[:, i] = torch.where(
             found, length.gather(1, max_j[:, None])[:, 0] + 1, 1)
     return p2, score, length
+
+
+# csrc/chain_dp.cu's full DP: the lookbacks of the chain warp's near part
+NEAR_D = 64
+
+
+def far_edge_may_score(dy: torch.Tensor, dx: torch.Tensor) -> torch.Tensor:
+    """The full DP kernel's test before it scores a far edge (far_column):
+    dy = y[j] - y[i] and dx = anchor_x[j] - anchor_x[i] of an edge whose
+    score of either type is positive satisfy it. getApxChainScore needs
+    dy >= 10 and score_dy < 100 (dy / 15 < 150), getApxChainScore0 dy >= 5
+    and 100 - dy > 0; dx <= -45 makes da >= denom (-1000); and past dx =
+    100 dy / 87 (at most 2,585) derr >= 13 costs score_derr >= 104."""
+    return (dy >= 5) & (dy < 2250) & (dx > -50) & (dx < 2599)
+
+
+def chain_dp_split(anchors: torch.Tensor, n_anchors: torch.Tensor,
+                   D: int = NEAR_D, thd_chain_depth: int = 20,
+                   thd_chain_dx_depth: int = 300, score_type: int = 0):
+    """The full DP kernel's decomposition, stated plainly for the tests (the
+    same (p2, score, length) as chain_dp_reference). Real column i (i < n)
+    takes the near part over d = 1 .. D (j = i - d >= 0, JAX's mask, a
+    positive edge): one max of the packed key total << bits | (d - 1)
+    (key_max), the largest total and then the smallest j; and the far part
+    over j < i - D: the largest total, the smallest j on a tie. The far
+    part wins a tie (its j is smaller); no positive total gives p2 -1 and
+    score 0. A padded column (i >= n) takes a far part over every j < n,
+    except that one past n + depth whose anchor-x and y equal column
+    i - 1's copies column i - 1. Then length[i] = length[p2[i]] + 1 (1 at a
+    root), p2[i] < i."""
+    B, N = anchors.shape
+    dev = anchors.device
+    n = n_anchors.to(device=dev, dtype=torch.int64).clamp(0, N)
+    score_fn = _score_fn(score_type)
+    ax = _anchor_x(anchors)
+    ay = anchors & MASK_Y
+    jj = torch.arange(N, device=dev)
+    d = torch.arange(1, D + 1, device=dev)
+    bits = key_bits(D)
+    depth, dxd = thd_chain_depth, thd_chain_dx_depth
+    copy_from = n + min(max(depth, 0), N)
+    score = torch.zeros((B, N), dtype=torch.int64, device=dev)
+    p2 = torch.full((B, N), -1, dtype=torch.int64, device=dev)
+    zero = torch.zeros((B, N), dtype=torch.int64, device=dev)
+    for i in range(N):
+        real = i < n
+        ai, axi = anchors[:, i: i + 1], ax[:, i: i + 1]
+        # near: the chain warp's step
+        j = i - d
+        jc = j.clamp(min=0)
+        e = score_fn(anchors[:, jc], ai).to(torch.int64)
+        elig = (j >= 0)[None] & real[:, None] & (
+            (d <= depth)[None] | (ax[:, jc] - axi < dxd))
+        tot = torch.where(elig & (e > 0), e + score[:, jc], 0)
+        near, dn = key_max(tot, bits)
+        # far: what the helper warps put in the tile's slot
+        hi = torch.where(real, i - D, n)
+        ok = (jj[None] < hi[:, None]) & (
+            (jj >= i - depth)[None] | (ax - axi < dxd))
+        e = score_fn(anchors, ai).to(torch.int64)
+        ft = torch.where(ok & (e > 0), e + score, zero)
+        far = ft.amax(1)
+        fj = torch.where(far > 0, torch.argmax(ft, dim=1), -1)
+        far_wins = far >= near
+        p2[:, i] = torch.where(far_wins, fj, i - dn)
+        score[:, i] = torch.maximum(far, near)
+        if i > 0:
+            copy = (i - 1 >= copy_from) & (axi[:, 0] == ax[:, i - 1]) & (
+                ay[:, i] == ay[:, i - 1])
+            p2[:, i] = torch.where(copy, p2[:, i - 1], p2[:, i])
+            score[:, i] = torch.where(copy, score[:, i - 1], score[:, i])
+    length = torch.ones((B, N), dtype=torch.int64, device=dev)
+    for i in range(N):
+        prev = length.gather(1, p2[:, i: i + 1].clamp(min=0))[:, 0]
+        length[:, i] = torch.where(p2[:, i] >= 0, prev + 1, 1)
+    return (p2.to(torch.int32), score.to(torch.int32),
+            length.to(torch.int32))
 
 
 def chain_dp(anchors: torch.Tensor, n_anchors: torch.Tensor,

@@ -56,12 +56,21 @@
 //   parity), and after the barrier takes the max of the warps before it
 //   (its carry; a read a lane and one __reduce_max_sync) and computes the
 //   next warp's first cell itself, which is the move from above of its
-//   last lane in the next row. KW <= 32,768 (W <= 16,384); the wrapper
-//   raises past it. (c 1 also takes the padded layout: lanes past KW < 32
-//   own no diagonal.)
+//   last lane in the next row. KW <= 32,768 (W <= 16,384). (c 1 also
+//   takes the padded layout: lanes past KW < 32 own no diagonal.)
 // Rows past n are not run (in JAX they do not evolve). The prefix max
 // differs from JAX's log-step form only among cells near NEG (its shifts
 // bring in NEG pads), which never reach the returned score.
+//
+// Past the register design (W > 16,384, or L >= 2^25, where the unmasked
+// cells left of the matrix could climb to the cells inside) every pair takes
+// the wide kernel at the end of the namespace: one block of up to 1,024
+// threads a pair, each row computed only on its diagonals inside the matrix
+// (at most min(KW, m + 1)), the others NEG as in JAX, so no cell drifts
+// whatever L; the previous row in a ring of min(KW, m + 1) + 1 ints, in
+// shared memory or, past 200 KB, in the pair's part of a device scratch that
+// the wrapper allocates; a block scan of the threads' running maxima a row
+// (two barriers). Any W < 2^30 (KW fits an int) and any L.
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -292,6 +301,124 @@ cudaError_t launch(const uint8_t* a, const uint8_t* bpad, const int32_t* nm,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The wide kernel (W > 16,384 or L >= 2^25). Row i's cells inside the
+// matrix are the diagonals [lo, hi] = [W - i, W - i + m] within the band
+// [0, KW): only those are computed, c = ceil((S - 1) / threads) a thread
+// from lo, and every other cell is NEG (JAX masks them), so no cell drifts
+// whatever L. Diagonal k reads its own cell of row i - 1 (the move along
+// the diagonal) and diagonal k + 1's (the move from above; NEG past the
+// band). Row i reads row i - 1 only on [lo, hi + 1], each cell of which
+// row i - 1 wrote, but lo when it is column 0 (whose candidate is 0); so a
+// ring of S = min(KW, m + 1) + 1 ints holds the row, diagonal k at k mod S
+// (m taken at most L + W, past which the band ends every row first): in
+// shared memory while S_max = min(KW, L + W + 1) + 1 ints fit kWideSmem,
+// else in the pair's part of a device scratch. The gap chain is the
+// inclusive prefix max of v + k less k: pass 1 takes a thread's running
+// max of v + k, a five-step shuffle scan in the warp and the warps' maxima
+// through shared memory give the max before it, and pass 2 computes each
+// candidate again (from the old row: the cell after the thread's last was
+// kept in pass 1) and writes the cells in place.
+constexpr int kWideThreads = 1024;
+constexpr int64_t kWideSmem = 200 * 1024;  // the ring in shared memory
+
+// the ring's ints a pair at most (S_max)
+__host__ __device__ inline int64_t wide_ints(int64_t L, int W) {
+  return (2 * (int64_t)W < L + W + 1 ? 2 * (int64_t)W : L + W + 1) + 1;
+}
+
+__global__ void __launch_bounds__(kWideThreads)
+    banded_align_wide_kernel(const uint8_t* __restrict__ a,
+                             const uint8_t* __restrict__ bpad,
+                             const int32_t* __restrict__ nm, int64_t L, int W,
+                             int* scratch, int32_t* __restrict__ out) {
+  extern __shared__ int band_sh[];
+  __shared__ int warp_sh[32];
+  const int KW = 2 * W;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int64_t b = blockIdx.x;
+  int* row = scratch ? scratch + b * wide_ints(L, W) : band_sh;
+  const uint8_t* q = a + b * L;
+  const uint8_t* r = bpad + b * (L + KW);
+  const int64_t n = min((int64_t)nm[2 * b], L);
+  const int64_t m = nm[2 * b + 1];
+  const int S = (int)min((int64_t)KW, max((int64_t)0, min(m, L + W)) + 1) + 1;
+  const int c = (S - 1 + blockDim.x - 1) / blockDim.x;
+  // row 0: H[0][j] = 0 for 0 <= j <= m, diagonals [W, W + min(W, m + 1))
+  const int64_t w0 = min((int64_t)W, m + 1);
+  for (int s = tid; s < S; s += blockDim.x)
+    row[s] = ((s - W) % S + S) % S < w0 ? 0 : kNeg;
+  int best = 0;
+  for (int64_t i = 1; i <= n; ++i) {
+    const int lo = (int)max((int64_t)0, W - i);
+    const int64_t hi64 = min((int64_t)KW - 1, W - i + m);
+    if (hi64 < lo) break;  // the band has left the matrix: rows stay NEG
+    const int hi = (int)hi64;
+    const int k0 = (int)min((int64_t)hi + 1, lo + (int64_t)tid * c);
+    const int k1 = min(k0 + c, hi + 1);
+    __syncthreads();  // row i - 1 is in row
+    const int qi = q[i - 1];
+    // diagonal k's candidate from its own cell of row i - 1 and the next
+    auto cand = [&](int k, int diag, int up) {
+      if (i + k == W) return 0;  // column 0
+      const int sub = qi == r[i - 1 + k] ? kMatch : kMismatch;
+      return max(diag + sub, up + kGap);
+    };
+    int run = kNeg - 1;  // below every v + k
+    int s0 = k0 % S;
+    int nb = kNeg;  // diagonal k1's cell of row i - 1
+    {
+      int s = s0, up = row[s];
+      for (int k = k0; k < k1; ++k) {
+        const int diag = up;
+        s = s + 1 == S ? 0 : s + 1;
+        up = k + 1 < KW ? row[s] : kNeg;
+        run = max(run, cand(k, diag, up) + k);
+      }
+      nb = up;
+    }
+    // the max of run over the threads before this one
+    int sc = run;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int o = __shfl_up_sync(kFull, sc, off);
+      if (lane >= off) sc = max(sc, o);
+    }
+    int carry = __shfl_up_sync(kFull, sc, 1);
+    if (lane == 0) carry = kNeg - 1;
+    if (lane == 31) warp_sh[warp] = sc;
+    __syncthreads();  // every thread has read row; the warp maxima are in
+    if (nwarps > 1)
+      carry = max(carry, warp_max(lane < warp ? warp_sh[lane] : kNeg - 1));
+    int s = s0, diag = row[s];
+    for (int k = k0; k < k1; ++k) {
+      const int sn = s + 1 == S ? 0 : s + 1;
+      const int up = k + 1 < k1 ? row[sn] : nb;
+      carry = max(carry, cand(k, diag, up) + k);
+      diag = up;
+      const int cell = carry - k;
+      if (i + k - W == m || i == n) best = max(best, cell);
+      row[s] = cell;
+      s = sn;
+    }
+  }
+  best = warp_max(best);
+  __syncthreads();
+  if (lane == 0) warp_sh[warp] = best;
+  __syncthreads();
+  if (warp == 0) {
+    const int v = warp_max(lane < nwarps ? warp_sh[lane] : 0);
+    if (lane == 0) out[b] = v;
+  }
+}
+
+bool wide_branch(int64_t L, int W) {
+  return 2 * (int64_t)W > kMaxKW || L >= kMaxL;
+}
+
 }  // namespace
 
 extern "C" {
@@ -318,19 +445,46 @@ int lt_banded_align_shape(int W, int* nw, int* c) {
   return 0;
 }
 
-// Launches the kernel on `stream`: a (B, L) and bpad (B, L + 2W) uint8
-// codes (the reference at column W), nm (B, 2) int32 true lengths;
-// 1 <= W <= 16,384, L < 2^25 (cells left of the matrix, unmasked, stay
-// far below every cell inside); out (B,) int32. Returns the cudaError_t of
-// the launch.
+// Scratch ints a launch of B pairs at (L, W) needs: 0 on the register
+// design (W <= 16,384 and L < 2^25) and while the wide kernel's ring of
+// min(2W, L + W + 1) + 1 ints fits its shared-memory budget (W <= 25,599
+// or L <= 51,197 - W), else B times that.
+int64_t lt_banded_align_scratch(int64_t B, int64_t L, int W) {
+  if (B <= 0 || W < 1 || L < 1 || !wide_branch(L, W)) return 0;
+  return wide_ints(L, W) * 4 > kWideSmem ? B * wide_ints(L, W) : 0;
+}
+
+// Launches a kernel on `stream`: a (B, L) and bpad (B, L + 2W) uint8 codes
+// (the reference at column W), nm (B, 2) int32 true lengths; 1 <= W < 2^30,
+// L >= 1; scratch holds lt_banded_align_scratch(B, L, W) ints (null when
+// that is 0); out (B,) int32. W <= 16,384 with L < 2^25 takes the register
+// design (cells left of the matrix, unmasked, stay far below every cell
+// inside), anything else the wide kernel. Returns the cudaError_t of the
+// launch.
 int lt_banded_align(const uint8_t* a, const uint8_t* bpad, const int32_t* nm,
-                    int64_t B, int64_t L, int W, int32_t* out, void* stream) {
+                    int64_t B, int64_t L, int W, int* scratch, int32_t* out,
+                    void* stream) {
   if (B <= 0) return (int)cudaSuccess;
-  int nw = 0, c = 0;
-  if (lt_banded_align_shape(W, &nw, &c) || L < 1 || L >= kMaxL
-      || B > 0x7fffffff)
+  if (W < 1 || W >= (1 << 30) || L < 1 || B > 0x7fffffff ||
+      (lt_banded_align_scratch(B, L, W) > 0) != (scratch != nullptr))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
+  if (wide_branch(L, W)) {
+    const size_t smem = scratch ? 0 : (size_t)wide_ints(L, W) * sizeof(int);
+    if (smem > 48 * 1024) {
+      const cudaError_t rc = cudaFuncSetAttribute(
+          banded_align_wide_kernel,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (rc != cudaSuccess) return (int)rc;
+    }
+    const int64_t band = (wide_ints(L, W) - 1 + 31) / 32 * 32;
+    const int threads = band < kWideThreads ? (int)band : kWideThreads;
+    banded_align_wide_kernel<<<(unsigned)B, threads, smem, st>>>(
+        a, bpad, nm, L, W, scratch, out);
+    return (int)cudaGetLastError();
+  }
+  int nw = 0, c = 0;
+  lt_banded_align_shape(W, &nw, &c);
   const int Li = (int)L;
   if (nw == 1) {
     switch (c) {

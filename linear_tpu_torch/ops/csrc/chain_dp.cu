@@ -61,7 +61,6 @@ namespace {
 constexpr uint64_t kMaskY = (1ull << 20) - 1;
 constexpr uint64_t kMaskX30 = (1ull << 30) - 1;
 constexpr uint64_t kValueMaskDstr = ((1ull << 60) - 1) | (1ull << 61);
-constexpr int64_t kNeg32 = -(1ll << 31) + 1;  // the full DP's sentinel
 constexpr int64_t kMaxFullSmem = 232448;  // shared memory a block may take
 
 // getAnchorX (src/cords.cpp:463): the 64-bit add may pass bit 63; it wraps
@@ -131,7 +130,9 @@ struct WinLayout {
   int64_t smem, scratch;       // bytes a block
 };
 
-inline int64_t align8(int64_t v) { return (v + 7) & ~(int64_t)7; }
+__host__ __device__ inline int64_t align8(int64_t v) {
+  return (v + 7) & ~(int64_t)7;
+}
 
 inline WinLayout win_layout(int64_t N, int W) {
   WinLayout L;
@@ -339,10 +340,12 @@ __device__ __forceinline__ void scan_tile_any(const uint8_t* eb, int i0,
 // by pointer jumping over the whole block: a word per column packs the
 // hops counted so far and the column they lead to, updated in place with
 // one 64-bit load and store, so a reader always sees a consistent pair;
-// rounds r = 1, 2, 4, ... up to the first r >= n (ceil(log2 n) + 1 of them)
-// reach every root, for any n below 2^31. `link` holds n words.
+// rounds r = 1, 2, 4, ... up to the first r >= max_len, the most columns a
+// chain can hold (ceil(log2 max_len) + 1 rounds), reach every root, for any
+// n below 2^31. `link` holds n words.
 __device__ __forceinline__ void lengths_pass(const int32_t* p2r, int n,
-                                             uint64_t* link, int32_t* lnr) {
+                                             int max_len, uint64_t* link,
+                                             int32_t* lnr) {
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
     const int p = p2r[i];
     link[i] = p < 0 ? 0xffffffffull : ((uint64_t)1 << 32) | (uint32_t)p;
@@ -358,7 +361,7 @@ __device__ __forceinline__ void lengths_pass(const int32_t* p2r, int n,
       }
     }
     __syncthreads();
-    if (r >= (unsigned)n) break;
+    if (r >= (unsigned)max_len) break;
   }
   for (int i = threadIdx.x; i < n; i += blockDim.x)
     lnr[i] = (int32_t)(link[i] >> 32) + 1;
@@ -452,14 +455,15 @@ __global__ void __launch_bounds__(kDpThreads)
     __syncthreads();  // tile t + 1 is scored; tile t's buffer is free
   }
   // the row table is free: its 8 N bytes take the lengths' links
-  lengths_pass(p2r, (int)n, reinterpret_cast<uint64_t*>(ax), lnr);
+  lengths_pass(p2r, (int)n, (int)n, reinterpret_cast<uint64_t*>(ax), lnr);
 }
 
 // ---------------------------------------------------------------------------
 // The full DP: linear_tpu/ops/chain_dp.py:86 batch_chain_dp, which builds the
 // whole (B, N, N) edge-score matrix and eligibility mask in XLA and then runs
 // a fori_loop over i with a masked max over every j < i. The plain PyTorch
-// version beside it is linear_tpu_torch/ops/chain_dp.py:chain_dp_reference.
+// version beside it is linear_tpu_torch/ops/chain_dp.py:chain_dp_reference,
+// and chain_dp_split there states this kernel's decomposition.
 //
 // What bounds it on the card: the same serial dependence as the windowed
 // DP, now with no limit on the lookback, and JAX's mask rather than the C++
@@ -468,54 +472,112 @@ __global__ void __launch_bounds__(kDpThreads)
 // sorted. Padded columns i >= n are computed too (from the real columns
 // only), as in JAX.
 //
-// Design: one block a read; the row's anchors, anchor-x, scores and chain
-// lengths sit in dynamic shared memory (20 bytes an anchor: N <= 11,622 in
-// the 227 KB a block may take); wider rows keep them in a device scratch
-// that the wrapper allocates, through the same pointers. The block first
-// checks whether the row's real anchors are sorted descending by
-// anchor-x. If they are, the eligible
-// j of column i form one run [min(i - depth, j0), i), where j0, the first
-// j within dx_depth, comes from a binary search; if not, the column scans
-// every j < i. Warp 0 runs the real columns in order: its lanes take j,
-// compute edge and total, and a five-round xor butterfly
-// picks the maximum with the smallest j on ties. The padded columns depend
-// only on the real ones, so after a barrier all warps take one each.
-template <int kScoreType>
-__device__ __forceinline__ void full_column(
-    int64_t i, int64_t n, bool sorted, const uint64_t* a_sh,
-    const int32_t* ax_sh, const int32_t* sc_sh, const int32_t* ln_sh,
-    int64_t depth, int64_t dx_depth, int lane, int64_t* best_out,
-    int64_t* bj_out, int32_t* bl_out) {
-  const uint64_t ai = a_sh[i];
-  const int64_t axi = ax_sh[i];
-  const int64_t hi = i < n ? i : n;
-  int64_t lo = 0;
-  if (sorted) {
-    int64_t l = 0, h = n;  // the first j with anchor_x[j] - axi < dx_depth
-    while (l < h) {
-      const int64_t mid = (l + h) >> 1;
-      if ((int64_t)ax_sh[mid] - axi < dx_depth) h = mid;
-      else l = mid + 1;
-    }
-    lo = i - depth < l ? i - depth : l;
-    lo = lo < 0 ? 0 : lo;
+// Design (a block a read, warp 0 running every column with a binary search,
+// the edge scores of every eligible j and a 64-bit butterfly inside each
+// serial step, measured 10 ms at (256, 8192) and 60 ms at (4, 12288) with
+// the row in global memory). Column i's max splits in two:
+//   - near, j in [i - kNearD, i): the chain warp's step, as in the windowed
+//     kernel: the edge bytes of the step come from a tile that helper warps
+//     scored off the chain, the scores of the last kNearD columns ride in a
+//     register ring, and one __reduce_max_sync of the
+//     packed key (total << bits | d - 1) picks the largest total and on a
+//     tie the smallest j; the far slot takes part as field wr, above every
+//     d - 1, since its j is smaller than every near j;
+//   - far, j < i - kNearD: only scores that are final when the chain starts
+//     the tile before column i's. While warp 0 scans tile t (kTileT
+//     columns), warps 1-7 prepare tile t + 1: a lane a column, one binary
+//     search on sorted rows gives each column's first j within dx_depth,
+//     j0, and so its eligible lookbacks (d <= max(depth, i - j0)) and its
+//     far range [min(j0, i - depth), i - kNearD); then a warp a column
+//     scores the near edge bytes that can be eligible (0 for the rest) and
+//     runs the far part (far_range) into a (total, j) slot. On other rows
+//     every d and every j is tried under JAX's mask. kTileT <= (kNearD +
+//     1) / 2 keeps every j they read in tiles <= t - 1.
+// Step s's outputs stay in lane s until the tile's end (one store a lane,
+// no branch on the chain); the lengths come after the scan from p2, by
+// pointer jumping (lengths_pass). Padded columns i >= n then go a warp
+// a column over j < n; one whose anchor-x and y equal column i - 1's, with
+// i - 1 >= n + depth (the depth term then admits no j < n for either), has
+// column i - 1's result, so a block scan hands each such run its first
+// column's.
+// (A design that scored all kNearD lookbacks of a tile in the helpers' ILP
+// loop and ran each column's binary search in its own warp measured slower:
+// the helpers, not the chain, set its time.)
+// The block keeps anchor-x, y and the scores, 12 bytes a column, in shared
+// memory (N <= 18,944 with the tiles: two blocks an SM at N 8,192), past
+// that in a device scratch; the chain needs only its ring and the tiles.
+// Totals are JAX's sums of the edge and score; every one stays below 2^25
+// (scan_tile_split), so the chain's key fits 32 bits on any row.
+constexpr int kFullThreads = 256;
+constexpr int kNearD = 64;   // the chain's lookbacks: two a lane
+constexpr int kTileT = 32;   // columns a tile
+constexpr int64_t kFullTiles =
+    2 * kTileT * kNearD + 2 * kTileT * 8 + 2 * kTileT * 4;  // edges, far slots
+static_assert(2 * kTileT - 1 <= kNearD, "far slots read only final scores");
+
+// A column's anchor-x and y side by side (one 8-byte load).
+struct __align__(8) XY {
+  int32_t x, y;
+};
+
+// On a row sorted descending by anchor-x: the first j in [0, n) whose
+// anchor-x is within dx_depth of axi (anchor_x[j] - axi < dx_depth holds
+// from there on). Column i's eligible j are then [min(j0, i - depth), i)
+// (the far part's start) and its eligible lookbacks d <= max(depth, i - j0).
+__device__ __forceinline__ int64_t first_within(int64_t axi, int64_t n,
+                                                const XY* xy,
+                                                int64_t dx_depth) {
+  int64_t l = 0, h = n;
+  while (l < h) {
+    const int64_t mid = (l + h) >> 1;
+    if ((int64_t)xy[mid].x - axi < dx_depth) h = mid;
+    else l = mid + 1;
   }
-  int64_t best = kNeg32;
-  int64_t best_j = INT64_MAX;
-  int32_t best_l = 1;
-  for (int64_t j = lo + lane; j < hi; j += 32) {
-    const int64_t axj = ax_sh[j];
-    if (j >= i - depth || axj - axi < dx_depth) {
-      const uint64_t aj = a_sh[j];
-      const int32_t e =
-          edge_score32(kScoreType, (int32_t)anchor_y(aj), (int32_t)axj,
-                       (int32_t)anchor_y(ai), (int32_t)axi);
-      if (e > 0) {
-        const int64_t t = (int64_t)e + sc_sh[j];
-        if (t > best) {  // j rises in a lane: a tie keeps the smaller j
+  return l;
+}
+
+// The far part of column i over j in [lo, hi): the largest int64 total
+// e(j, i) + score[j] of an eligible j with a positive edge, the smallest j
+// on a tie. One warp, four j a lane at a time; every lane returns it, (0,
+// -1) when there is none (a total that is not positive never counts: JAX's
+// found). A positive edge of either score type has 5 <= dy < 2250 and
+// -50 < dx < 2599 (ops/chain_dp.py far_edge_may_score), so the other j,
+// most of a shuffled row's and all of a padded column's past the row, are
+// passed over without a score.
+template <int kScoreType>
+__device__ __forceinline__ int64_t far_range(int64_t i, int64_t lo,
+                                             int64_t hi, const XY* xy,
+                                             const int32_t* sc, int64_t depth,
+                                             int64_t dx_depth, int lane,
+                                             int* bj_out) {
+  constexpr int kU = 4;
+  const XY xi = xy[i];
+  int64_t best = 0;
+  int bj = -1;
+  for (int64_t jb = lo + lane; jb < hi; jb += 32 * kU) {
+    XY v[kU];
+    bool f[kU];
+    bool any = false;
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const int64_t j = jb + 32 * u;
+      v[u] = j < hi ? xy[j] : xi;
+      const int32_t dy = v[u].y - xi.y, dx = v[u].x - xi.x;
+      f[u] = j < hi && (unsigned)(dy - 5) < 2245u &&
+             (unsigned)(dx + 49) < 2648u &&
+             (j >= i - depth || (int64_t)dx < dx_depth);
+      any |= f[u];
+    }
+    if (any) {
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        if (!f[u]) continue;
+        const int32_t e = edge_score32(kScoreType, v[u].y, v[u].x, xi.y, xi.x);
+        const int64_t j = jb + 32 * u;
+        const int64_t t = (int64_t)e + sc[j];
+        if (e > 0 && t > best) {  // j rises in a lane: a tie keeps the smaller
           best = t;
-          best_j = j;
-          best_l = ln_sh[j];
+          bj = (int)j;
         }
       }
     }
@@ -523,90 +585,292 @@ __device__ __forceinline__ void full_column(
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
     const int64_t ot = __shfl_xor_sync(0xffffffffu, best, off);
-    const int64_t oj = __shfl_xor_sync(0xffffffffu, best_j, off);
-    const int32_t ol = __shfl_xor_sync(0xffffffffu, best_l, off);
-    if (ot > best || (ot == best && oj < best_j)) {
+    const int oj = __shfl_xor_sync(0xffffffffu, bj, off);
+    if (ot > best || (ot == best && oj < bj)) {
       best = ot;
-      best_j = oj;
-      best_l = ol;
+      bj = oj;
     }
   }
-  *best_out = best;
-  *bj_out = best_j;
-  *bl_out = best_l;
+  *bj_out = bj;
+  return best;
 }
 
-constexpr int kFullThreads = 256;
+// A tile's serial steps of the full DP (the chain warp, kTileT = 32 steps,
+// step s's outputs kept by lane s and stored after the tile): the near part
+// from the edge bytes and the register ring (lane l holds in rs[h] the score
+// of j = i - d, d = l + 1 + 32 h), merged with the far slot in one
+// __reduce_max_sync of the packed key total << bits | field, field d - 1
+// for a lookback and wr for the far slot, so the far part wins a tie inside
+// the reduction. The key fits 32 bits for any row: a positive edge is at
+// most 100 and needs y[j] - y[i] >= 5, so along a chain y falls by 5 a link
+// within its 20 bits, and a total stays below 100 * 2^20 / 5 + 100 < 2^25
+// (bits <= 7, wr <= 64).
+__device__ __forceinline__ void scan_tile_split(
+    const uint8_t* eb, int i0, int steps, int wr, int bits,
+    const int64_t* ftot, const int32_t* fj, uint32_t (&rs)[2], int lane,
+    int32_t* p2r, int32_t* scr, int32_t* sc) {
+  static_assert(kTileT == 32, "lane s keeps step s's outputs");
+  const uint32_t dmask = (1u << bits) - 1;
+  // lane s's far slot, as a key
+  const int64_t ft_l = lane < steps ? ftot[lane] : 0;
+  const int32_t fj_l = lane < steps ? fj[lane] : -1;
+  const uint32_t fk_l = ft_l > 0 ? ((uint32_t)ft_l << bits) | (uint32_t)wr : 0u;
+  int32_t my_p2 = -1, my_sc = 0;
+  uint32_t e[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int d = lane + 1 + 32 * h;
+    e[h] = d <= wr ? eb[d - 1] : 0u;
+  }
+  for (int s = 0; s < steps; ++s) {
+    uint32_t key = __shfl_sync(0xffffffffu, fk_l, s);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int d = lane + 1 + 32 * h;
+      const uint32_t k =
+          e[h] ? (((e[h] + rs[h]) << bits) | (uint32_t)(d - 1)) : 0u;
+      key = k > key ? k : key;
+    }
+    if (s + 1 < steps) {
+      const uint8_t* en = eb + (s + 1) * wr;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int d = lane + 1 + 32 * h;
+        e[h] = d <= wr ? en[d - 1] : 0u;
+      }
+    }
+    key = __reduce_max_sync(0xffffffffu, key);
+    const uint32_t best = key >> bits;  // 0: no eligible edge
+    const int field = (int)(key & dmask);
+    const int i = i0 + s;
+    const int32_t p2i = key == 0 ? -1 : (field == wr ? fj_l : i - field - 1);
+#pragma unroll
+    for (int h = 1; h >= 0; --h) {
+      const uint32_t up = __shfl_up_sync(0xffffffffu, rs[h], 1);
+      const uint32_t in = h ? __shfl_sync(0xffffffffu, rs[0], 31) : best;
+      rs[h] = lane ? up : in;
+    }
+    my_p2 = lane == s ? p2i : my_p2;
+    my_sc = lane == s ? (int32_t)best : my_sc;
+  }
+  if (lane < steps) {
+    p2r[i0 + lane] = my_p2;
+    scr[i0 + lane] = my_sc;
+    sc[i0 + lane] = my_sc;
+  }
+}
+
+// the exclusive max of v over the block's threads in thread order (-1 for
+// thread 0); tmp holds a word a warp; ends with a barrier
+__device__ __forceinline__ int block_excl_max(int v, int* tmp) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int s = v;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int o = __shfl_up_sync(0xffffffffu, s, off);
+    if (lane >= off) s = max(s, o);
+  }
+  int ex = __shfl_up_sync(0xffffffffu, s, 1);
+  if (lane == 0) ex = -1;
+  if (lane == 31) tmp[warp] = s;
+  __syncthreads();
+  for (int w = 0; w < warp; ++w) ex = max(ex, tmp[w]);
+  __syncthreads();
+  return ex;
+}
+
+// the device scratch bytes a read of the full DP needs at width N: 0 while
+// its tables (12 N bytes) fit the shared memory beside the tiles
+__host__ __device__ inline int64_t full_table_bytes(int64_t N) {
+  return align8(12 * N);
+}
+inline bool full_tables_in_smem(int64_t N) {
+  return full_table_bytes(N) + kFullTiles <= kMaxFullSmem - 256;
+}
 
 template <int kScoreType>
 __global__ void __launch_bounds__(kFullThreads)
     chain_dp_full_kernel(const uint64_t* __restrict__ anchors,
                          const int32_t* __restrict__ n_anchors, int64_t N,
-                         int64_t depth, int64_t dx_depth, uint64_t* scratch,
+                         int64_t depth, int64_t dx_depth, uint8_t* scratch,
                          int32_t* p2, int32_t* score, int32_t* length) {
-  extern __shared__ uint64_t smem[];
-  // the row in shared memory, or past its budget in this read's 20 N bytes
-  // of the device scratch
-  uint64_t* a_sh =
-      scratch ? scratch + (int64_t)blockIdx.x * ((N * 20 + 7) / 8) : smem;
-  int32_t* ax_sh = reinterpret_cast<int32_t*>(a_sh + N);
-  int32_t* sc_sh = ax_sh + N;
-  int32_t* ln_sh = sc_sh + N;
+  extern __shared__ int64_t full_smem[];
+  __shared__ int scan_tmp[kFullThreads / 32];
   const int64_t b = blockIdx.x;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // the tiles, then the tables (here or in this read's part of the scratch)
+  uint8_t* sp = reinterpret_cast<uint8_t*>(full_smem);
+  int64_t* ftot_b = reinterpret_cast<int64_t*>(sp);    // 2 x kTileT
+  int32_t* fj_b = reinterpret_cast<int32_t*>(sp + 16 * kTileT);
+  uint8_t* ebuf = sp + 24 * kTileT;                   // 2 x kTileT x kNearD
+  uint8_t* tp = scratch ? scratch + b * full_table_bytes(N) : sp + kFullTiles;
+  XY* xy = reinterpret_cast<XY*>(tp);
+  int32_t* sc = reinterpret_cast<int32_t*>(xy + N);
+
   const uint64_t* a = anchors + b * N;
   int64_t n = n_anchors[b];
   n = n < 0 ? 0 : (n > N ? N : n);
-  for (int64_t k = threadIdx.x; k < N; k += blockDim.x) {
-    const uint64_t v = a[k];
-    a_sh[k] = v;
-    ax_sh[k] = (int32_t)anchor_x(v);
-  }
-  __syncthreads();
-  int ok = 1;
-  for (int64_t k = threadIdx.x; k + 1 < n; k += blockDim.x)
-    ok &= ax_sh[k] >= ax_sh[k + 1];
-  const bool sorted = __syncthreads_and(ok);
   int32_t* p2r = p2 + b * N;
   int32_t* scr = score + b * N;
   int32_t* lnr = length + b * N;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  int64_t best, bj;
-  int32_t bl;
-  if (warp == 0) {
-    for (int64_t i = 0; i < n; ++i) {
-      full_column<kScoreType>(i, n, sorted, a_sh, ax_sh, sc_sh, ln_sh, depth,
-                              dx_depth, lane, &best, &bj, &bl);
-      const bool found = best > 0;
-      if (lane == 0) {
-        sc_sh[i] = found ? (int32_t)best : 0;
-        ln_sh[i] = found ? bl + 1 : 1;
-        p2r[i] = found ? (int32_t)bj : -1;
-        scr[i] = sc_sh[i];
-        lnr[i] = ln_sh[i];
-      }
-      __syncwarp();  // column i is visible to column i + 1
-    }
+  for (int64_t k = tid; k < N; k += kFullThreads) {
+    const uint64_t v = a[k];
+    xy[k] = XY{(int32_t)anchor_x(v), (int32_t)anchor_y(v)};
   }
   __syncthreads();
-  for (int64_t i = n + warp; i < N; i += kFullThreads / 32) {
-    full_column<kScoreType>(i, n, sorted, a_sh, ax_sh, sc_sh, ln_sh, depth,
-                            dx_depth, lane, &best, &bj, &bl);
-    const bool found = best > 0;
-    if (lane == 0) {
-      p2r[i] = found ? (int32_t)bj : -1;
-      scr[i] = found ? (int32_t)best : 0;
-      lnr[i] = found ? bl + 1 : 1;
+  int ok = 1;
+  for (int64_t k = tid; k + 1 < n; k += kFullThreads)
+    ok &= xy[k].x >= xy[k + 1].x;
+  const bool sorted = __syncthreads_and(ok);
+
+  if (n > 0) {
+    const int wr = (int)(kNearD < n ? kNearD : n);  // the near lookbacks
+    // the key's field holds d - 1 < wr, or wr for the far slot
+    const int bits = 32 - __clz(wr);
+    const int tiles = (int)((n + kTileT - 1) / kTileT);
+    const int tile_b = kTileT * wr;
+    // tile t's edge bytes and far slots by `warps` warps from `w0`: each
+    // warp first finds, a lane a column, the far part's start and the
+    // eligible lookbacks of the tile's columns (on sorted rows by a binary
+    // search; on others every j and every d), then takes columns
+    // warp - w0, + warps, ...: its lanes score the near lookbacks d =
+    // lane + 1 (+ 32) that can be eligible, writing 0 for the rest, and it
+    // runs the far part over [lo, i - kNearD)
+    auto prepare = [&](int t, int w0, int warps) {
+      const int i0 = t * kTileT;
+      const int steps = (int)(n - i0 < kTileT ? n - i0 : kTileT);
+      int64_t lo_c = 0;
+      int dm_c = 0;
+      if (lane < steps) {
+        const int64_t ic = i0 + lane;
+        const int64_t dall = ic < wr ? ic : wr;  // j = i - d >= 0
+        if (sorted) {
+          const int64_t j0 = first_within(xy[ic].x, n, xy, dx_depth);
+          const int64_t lo = ic - depth < j0 ? ic - depth : j0;
+          lo_c = lo < 0 ? 0 : lo;
+          const int64_t dm = depth > ic - j0 ? depth : ic - j0;
+          dm_c = (int)(dm < 0 ? 0 : (dm > dall ? dall : dm));
+        } else {
+          dm_c = (int)dall;
+        }
+      }
+      uint8_t* eb = ebuf + (t & 1) * tile_b;
+      for (int c = warp - w0; c < steps; c += warps) {
+        const int64_t i = i0 + c;
+        const int dm = __shfl_sync(0xffffffffu, dm_c, c);
+        const int64_t lo = __shfl_sync(0xffffffffu, lo_c, c);
+        const XY xi = xy[i];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int d = lane + 1 + 32 * h;
+          uint32_t e = 0;
+          if (d <= dm) {
+            const XY xj = xy[i - d];
+            const bool elig =
+                sorted || d <= depth || (int64_t)(xj.x - xi.x) < dx_depth;
+            const int32_t v =
+                edge_score32(kScoreType, xj.y, xj.x, xi.y, xi.x);
+            e = elig && v > 0 ? (uint32_t)v : 0u;
+          }
+          if (d <= wr) eb[c * wr + d - 1] = (uint8_t)e;
+        }
+        int bj = -1;
+        int64_t ft = 0;
+        if (i - kNearD > lo)  // warp-uniform
+          ft = far_range<kScoreType>(i, lo, i - kNearD, xy, sc, depth,
+                                     dx_depth, lane, &bj);
+        if (lane == 0) {
+          ftot_b[(t & 1) * kTileT + c] = ft;
+          fj_b[(t & 1) * kTileT + c] = bj;
+        }
+      }
+    };
+    uint32_t rs[2] = {0u, 0u};
+    prepare(0, 0, kFullThreads / 32);
+    __syncthreads();
+    for (int t = 0; t < tiles; ++t) {
+      if (warp == 0) {
+        const int i0 = t * kTileT;
+        const int steps = (int)(n - i0 < kTileT ? n - i0 : kTileT);
+        const uint8_t* eb = ebuf + (t & 1) * tile_b;
+        const int64_t* ft = ftot_b + (t & 1) * kTileT;
+        const int32_t* fj = fj_b + (t & 1) * kTileT;
+        scan_tile_split(eb, i0, steps, wr, bits, ft, fj, rs, lane, p2r, scr,
+                        sc);
+      } else if (t + 1 < tiles) {
+        prepare(t + 1, 1, kFullThreads / 32 - 1);
+      }
+      __syncthreads();  // tile t + 1 is prepared; tile t's slots are free
     }
   }
+  // padded columns: from the real ones only. A column whose anchor-x and y
+  // (all its result depends on) equal column i - 1's, both past n + depth,
+  // copies it; the others go a warp a column, the k-th of them (in column
+  // order, counted by ballots that every warp takes alike) to warp k mod 8
+  const int64_t copy_from = n + (depth < 0 ? 0 : (depth > N ? N : depth));
+  const int64_t* xy64 = reinterpret_cast<const int64_t*>(xy);
+  auto is_copy = [&](int64_t i) {
+    return i - 1 >= copy_from && xy64[i] == xy64[i - 1];
+  };
+  int rank = 0;  // the computed columns before this group of 32
+  for (int64_t base = n; base < N; base += 32) {
+    const int64_t i = base + lane;
+    unsigned todo = __ballot_sync(0xffffffffu, i < N && !is_copy(i));
+    const int count = __popc(todo);
+    for (int k = 0; todo; ++k, todo &= todo - 1) {
+      if ((rank + k) % (kFullThreads / 32) != warp) continue;  // warp-uniform
+      const int64_t c = base + __ffs(todo) - 1;
+      int64_t lo = 0;
+      if (sorted) {
+        const int64_t j0 = first_within(xy[c].x, n, xy, dx_depth);
+        lo = c - depth < j0 ? c - depth : j0;
+        lo = lo < 0 ? 0 : lo;
+      }
+      int bj = -1;
+      int64_t t = 0;
+      if (n > lo)
+        t = far_range<kScoreType>(c, lo, n, xy, sc, depth, dx_depth, lane,
+                                  &bj);
+      if (lane == 0) {
+        p2r[c] = bj;
+        scr[c] = (int32_t)t;
+      }
+    }
+    rank += count;
+  }
+  __syncthreads();
+  if (copy_from + 1 < N) {  // block-uniform
+    // each thread a run of columns; the last computed column before each
+    const int64_t span = N - n;
+    const int64_t per = (span + kFullThreads - 1) / kFullThreads;
+    const int64_t c0 = n + tid * per;
+    const int64_t c1 = c0 + per < N ? c0 + per : N;
+    int last = -1;
+    for (int64_t i = c0; i < c1; ++i)
+      if (!is_copy(i)) last = (int)i;
+    int src = block_excl_max(last, scan_tmp);
+    for (int64_t i = c0; i < c1; ++i) {
+      if (!is_copy(i)) {
+        src = (int)i;
+      } else {
+        p2r[i] = p2r[src];
+        scr[i] = scr[src];
+      }
+    }
+    __syncthreads();
+  }
+  // the tables are free: their 12 N bytes take the lengths' links; a chain
+  // holds at most n + 1 columns (a padded one and n real ones)
+  lengths_pass(p2r, (int)N, (int)n + 1, reinterpret_cast<uint64_t*>(tp), lnr);
 }
 
 template <int kScoreType>
 int launch_full(const uint64_t* anchors, const int32_t* n_anchors, int64_t B,
-                int64_t N, int64_t depth, int64_t dx_depth, uint64_t* scratch,
+                int64_t N, int64_t depth, int64_t dx_depth, uint8_t* scratch,
                 int32_t* p2, int32_t* score, int32_t* length,
                 cudaStream_t stream) {
-  const size_t smem = scratch ? 0 : (size_t)N * 20;
+  const size_t smem =
+      (size_t)(kFullTiles + (scratch ? 0 : full_table_bytes(N)));
   cudaError_t rc = cudaFuncSetAttribute(
       chain_dp_full_kernel<kScoreType>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -620,11 +884,11 @@ int launch_full(const uint64_t* anchors, const int32_t* n_anchors, int64_t B,
 
 extern "C" {
 
-// Device scratch bytes a read of the full DP at width N: 0 while its 20 N
-// bytes fit the shared memory a block may take (N <= 11,622), else 20 N
-// rounded up to whole int64 words.
+// Device scratch bytes a read of the full DP at width N: 0 while its tables
+// (anchor-x, y and score, 12 N bytes) fit the shared memory beside the
+// tiles (N <= 18,944), else 12 N rounded up to whole int64 words.
 int64_t lt_chain_dp_full_scratch(int64_t N) {
-  return N * 20 > kMaxFullSmem ? (N * 20 + 7) / 8 * 8 : 0;
+  return full_tables_in_smem(N) ? 0 : full_table_bytes(N);
 }
 
 // Launches the full DP on `stream`: anchors (B, N) uint64, n_anchors (B,)
@@ -633,7 +897,7 @@ int64_t lt_chain_dp_full_scratch(int64_t N) {
 // cudaError_t of the launch.
 int lt_chain_dp_full(const uint64_t* anchors, const int32_t* n_anchors,
                      int64_t B, int64_t N, int64_t depth, int64_t dx_depth,
-                     int score_type, uint64_t* scratch, int32_t* p2,
+                     int score_type, uint8_t* scratch, int32_t* p2,
                      int32_t* score, int32_t* length, void* stream) {
   if (B <= 0) return (int)cudaSuccess;
   if (N < 1 || N > 0x7fffffff || B > 0x7fffffff ||

@@ -22,6 +22,13 @@ the middle of the gap phase).
                         per read 9-mer, and a stable argsort of a 46-bit
                         emission key (val, g_std, g_rel, r_std, r_rel) that
                         puts the kept anchors in host order.
+  gap_anchors_filtered  the kernel's formulation stated plainly (for the
+                        tests): read 9-mers whose val no genome group can
+                        have (a hashed bitmap of the groups' vals) go before
+                        the sort, vmax counting them first; the pairs come
+                        in (genome entry, read key) order, which is the
+                        emission key's order on windows within 0 ..
+                        2^30 - 5 g_max; other windows sort them by key.
 
 An item overflows (None) when a read 9-mer matches more than cap genome
 entries, more than m_out anchors are kept, or a window is longer than
@@ -134,6 +141,91 @@ def gap_anchors_reference(gseq, g_n, gpos0, rseq, r_n, rpos0, rvcp, a_lo,
         out_a = torch.nn.functional.pad(out_a, (0, pad))
         out_k = torch.nn.functional.pad(out_k, (0, pad), value=INVALID)
     return out_a, out_k, count, overflow
+
+
+# csrc/gap_anchors.cu: the bits of the hashed bitmap of the genome vals
+GAP_BITS = 1 << 15
+
+
+def gap_anchors_filtered(gseq, g_n, gpos0, rseq, r_n, rpos0, rvcp, a_lo,
+                         a_hi, g_max: int, r_max: int, cap: int, m_out: int):
+    """The block-scan kernel's formulation, item by item (the same anchors,
+    keys, count and overflow as gap_anchors_reference on
+    [:min(count, m_out)]; slots past them hold anchor 0 and key 1 << 62).
+    vmax is the largest val of every valid sample and read 9-mer; a read
+    9-mer survives when the bit (val & (GAP_BITS - 1)) of some genome
+    entry's group is set, the group's val being the entry's key >> 33 (a
+    window start below 0 borrows from it; an entry below 0 is in no group;
+    a read 9-mer of another val finds an empty group); the
+    genome entries and the survivors' keys val << 14 | std << 13 | rel are
+    sorted; genome entry gi (not below 0) pairs with the survivors of its
+    val when it is among the first cap of its val group, and an item
+    overflows when a group of more than cap meets a survivor; the pairs in
+    (gi, read key) order are JAX's emission order when 0 <= gpos0 <= 2^30 -
+    5 g_max, and are sorted by the emission key otherwise. Also returns
+    each item's survivor count."""
+    B = gseq.shape[0]
+    GW, RW = gseq.shape[1], rseq.shape[1]
+    dev = gseq.device
+    gval, gstd = stream_vals(gseq)
+    rval, rstd = stream_vals(rseq)
+    out_a = torch.zeros((B, m_out), dtype=torch.int64, device=dev)
+    out_k = torch.full((B, m_out), INVALID, dtype=torch.int64, device=dev)
+    count = torch.zeros((B,), dtype=torch.int32, device=dev)
+    overflow = torch.zeros((B,), dtype=torch.bool, device=dev)
+    survivors = torch.zeros((B,), dtype=torch.int64, device=dev)
+    for b in range(B):
+        ng = min(g_max, max(int(g_n[b]), 0) // 5)
+        nr = min(r_max, max(int(r_n[b]), 0))
+        t = torch.arange(ng, device=dev)
+        p = (4 + 5 * t).clamp(max=GW - SHAPE_LEN)
+        gv, gs = gval[b, p], gstd[b, p]
+        g_ent = (gv << 33) + (gs << 30) + (int(gpos0[b]) + p)
+        r = torch.arange(nr, device=dev)
+        rp = r.clamp(max=RW - SHAPE_LEN)
+        rv, rs = rval[b, rp], rstd[b, rp]
+        vmax = max([-1] + [int(x.max()) for x in (gv, rv) if x.numel()])
+        # the val of each entry's group, as the signed searchsorted sees
+        # it (a window start below 0 borrows from the val)
+        bitset = torch.zeros(GAP_BITS, dtype=torch.bool, device=dev)
+        bitset[(g_ent[g_ent >= 0] >> 33) & (GAP_BITS - 1)] = True
+        live = bitset[rv & (GAP_BITS - 1)]
+        survivors[b] = int(live.sum())
+        rk = torch.sort((rv[live] << 14) | (rs[live] << 13) | r[live]).values
+        gk = torch.sort(g_ent).values
+        val = gk >> 33
+        glo = torch.searchsorted(gk, val << 33)
+        ghi = torch.searchsorted(gk, (val + 1) << 33)
+        rl = torch.searchsorted(rk, val << 14)
+        rh = torch.searchsorted(rk, (val + 1) << 14)
+        ok = gk >= 0
+        ovf = bool((ok & (ghi - glo > cap) & (rh > rl)).any())
+        npair = torch.where(ok & (t - glo < cap), rh - rl, 0)
+        gi = torch.repeat_interleave(t, npair)
+        first = torch.repeat_interleave(torch.cumsum(npair, 0) - npair, npair)
+        key_r = rk[rl[gi] + torch.arange(gi.numel(), device=dev) - first]
+        hs1 = gk[gi]
+        rvv, r_std, rrel = key_r >> 14, (key_r >> 13) & 1, key_r & 0x1FFF
+        hs2 = (rvv << 33) + (1 << 31) + (r_std << 30) + (int(rpos0[b]) + rrel)
+        # g_hs_set_anchor (src/gap_util.cpp:548)
+        std_ = ((hs1 ^ hs2) >> 30) & 1
+        xx = int(rvcp[b]) * std_ - (2 * std_ - 1) * (hs2 & GA_MASK3)
+        anchor = (((hs1 + GA_ZERO - xx) & GA_MASK3) << 20) + xx + (std_ << 50)
+        tmp = ((anchor >> 20) & GA_MASK5) - GA_ZERO
+        keep = (tmp >= int(a_lo[b])) & (tmp < int(a_hi[b])) & (rvv < vmax)
+        key = ((rvv << 28) | (((hs1 >> 30) & 1) << 27)
+               | (((hs1 & GA_MASK3) - int(gpos0[b])) << 14) | (r_std << 13)
+               | rrel)
+        anchor, key = anchor[keep], key[keep]
+        if not 0 <= int(gpos0[b]) <= (1 << 30) - 5 * g_max:
+            order = torch.sort(key, stable=True).indices
+            anchor, key = anchor[order], key[order]
+        k = min(anchor.numel(), m_out)
+        out_a[b, :k], out_k[b, :k] = anchor[:k], key[:k]
+        count[b] = anchor.numel()
+        overflow[b] = (ovf or anchor.numel() > m_out
+                       or int(g_n[b]) > 5 * g_max + 4 or int(r_n[b]) > r_max)
+    return out_a, out_k, count, overflow, survivors
 
 
 def gap_anchors(gseq, g_n, gpos0, rseq, r_n, rpos0, rvcp, a_lo, a_hi,

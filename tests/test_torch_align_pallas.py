@@ -253,3 +253,110 @@ def test_banded_shape(W, shape):
         assert set(vl.tolist()) <= {c, c - 1} and int(vl[0]) == c
     with pytest.raises(ValueError):
         AP.banded_shape(AP.BANDED_MAX_W + 1)
+
+
+# ------------------------------------------------ past the register design
+
+def _pallas_interpret(qry, ref, W, L=128):
+    """JAX's Pallas kernel (_ba_kernel, the repo's one pl.pallas_call) in
+    interpret mode on a batch, as banded_align_scores calls it, with the
+    substitution tensor sub[b, i, k] = (bpad[b, i + k] == a[b, i] ? +3 :
+    -2) built in numpy: banded_align_scores stacks KW slices in XLA, whose
+    trace at W 16,385 (32,770 slices) takes the CPU minutes."""
+    from functools import partial
+
+    import jax
+    import jax.numpy as jnp
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import tpu as pltpu
+
+    SB = JAP.SUBBATCH
+    B0, KW = len(qry), 2 * W
+    B = -(-B0 // SB) * SB
+    a = np.full((B, L), 7, np.int32)
+    bpad = np.full((B, L + KW), 9, np.int32)
+    nm = np.zeros((B, 128), np.int32)
+    for i, (q, r) in enumerate(zip(qry, ref)):
+        a[i, : len(q)] = q
+        bpad[i, W: W + len(r)] = r
+        nm[i, :2] = len(q), len(r)
+    win = bpad[:, np.arange(L)[:, None] + np.arange(KW)[None, :]]
+    sub = np.where(win == a[:, :, None], JAP.S_MATCH,
+                   JAP.S_MISMATCH).astype(np.int32)
+    sub3 = (sub.reshape(B // SB, SB, L, KW).transpose(0, 2, 1, 3)
+            .reshape((B // SB) * L, SB, KW))
+    with jax.enable_x64(False):
+        out = pl.pallas_call(
+            partial(JAP._ba_kernel, L=L, W=W, KW=KW, SB=SB),
+            grid=(B // SB, L),
+            in_specs=[
+                pl.BlockSpec((1, SB, KW), lambda p, i: (p * L + i, 0, 0),
+                             memory_space=pltpu.VMEM),
+                pl.BlockSpec((1, SB, 128), lambda p, i: (p, 0, 0),
+                             memory_space=pltpu.VMEM)],
+            out_specs=pl.BlockSpec((1, SB, 128), lambda p, i: (p, 0, 0),
+                                   memory_space=pltpu.VMEM),
+            out_shape=jax.ShapeDtypeStruct((B // SB, SB, 128), jnp.int32),
+            scratch_shapes=[pltpu.VMEM((SB, KW), jnp.int32),
+                            pltpu.VMEM((SB, 128), jnp.int32)],
+            interpret=True,
+        )(jnp.asarray(sub3), jnp.asarray(nm.reshape(B // SB, SB, 128)))
+    return np.asarray(out).reshape(B, 128)[:B0, 0]
+
+
+def _short_pairs(rng, W):
+    """Short pairs (up to 120 bases, rows of L 128): the edge pairs cut to
+    fit, and mutated copies with a reference shifted by up to 60 bases."""
+    qry, ref = banded_edge_pairs(rng, 7)
+    for _ in range(5):
+        r = rng.integers(0, 4, int(rng.integers(40, 120))).astype(np.uint8)
+        q = r[int(rng.integers(0, 30)):].copy()
+        q[rng.random(len(q)) < 0.1] = 3
+        qry.append(q[:120])
+        ref.append(r)
+    return [q[:120] for q in qry], [r[:120] for r in ref]
+
+
+@pytest.mark.parametrize("W", [100, 16385])
+def test_wide_band_matches_jax_pallas(W):
+    """W 16,385, the first band past the register design (the kernel's wide
+    branch on the card): the plain version, which the CPU entry point runs
+    and the kernel is held to, against JAX's Pallas kernel in interpret
+    mode and the oracle, on short rows (at W 16,385 one Pallas sub-batch of
+    eight of them, whose interpretation at 32,770 diagonals is the slow
+    part), and the wide kernel's statement banded_align_ring. At W 100 the
+    helper that feeds the Pallas kernel is itself held to JAX's
+    banded_align_scores."""
+    qry, ref = _short_pairs(np.random.default_rng(W), W)
+    if W > AP.BANDED_MAX_W:  # one Pallas sub-batch: n = 0, m = 0, identical,
+        keep = [0, 1, 4, 8, 9, 10, 11, 12]  # the five mutated pairs
+        qry, ref = [qry[k] for k in keep], [ref[k] for k in keep]
+    want = _pallas_interpret(qry, ref, W)
+    if W == 100:
+        assert np.array_equal(want, JAP.banded_align_scores(qry, ref, W=W))
+    got = AP.banded_align_scores(qry, ref, W=W, L=128, device="cpu")
+    assert np.array_equal(got, want)
+    assert got.tolist() == [AP.banded_align_oracle(q, r, W=W)
+                            for q, r in zip(qry, ref)]
+    assert got.max() > 100
+    packed = (torch.from_numpy(x) for x in AP.pack_pairs(qry, ref, W, 128))
+    assert np.array_equal(AP.banded_align_ring(*packed, W).numpy(), got)
+
+
+@pytest.mark.parametrize("W,L", [(1, None), (2, None), (16, None),
+                                 (33, 384), (100, None), (513, None)])
+def test_ring_decomposition_matches_jax(W, L):
+    """banded_align_ring (the wide kernel's rows cut to their diagonals
+    inside the matrix, the row before read from a ring of min(2W, m + 1) + 1
+    cells) against JAX's banded_align_scores (its Pallas kernel in interpret
+    mode) and the plain version, on the edge pairs: n = 0, m = 0, a query
+    past m + W (the band leaves the matrix), m far past n (the ring as wide
+    as the band), identical, all mismatches, N against N; W 33 also in rows
+    padded past the longest sequence."""
+    qry, ref = banded_edge_pairs(np.random.default_rng(W + 5), W)
+    a, bpad, nm = (torch.from_numpy(x) for x in AP.pack_pairs(qry, ref, W, L))
+    got = AP.banded_align_ring(a, bpad, nm, W).numpy()
+    assert got.dtype == np.int32
+    assert np.array_equal(got, JAP.banded_align_scores(qry, ref, W=W, L=L))
+    assert np.array_equal(got, AP.banded_align_reference(a, bpad, nm, W))
+    assert got[0] == 0 and got[1] == 0 and got[4] == 3 * len(qry[4])

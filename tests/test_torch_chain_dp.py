@@ -423,3 +423,103 @@ def test_key_max_picks_jax_argmax(w):
     found = ring.max(1) > 0
     assert np.array_equal(best.numpy(), np.where(found, ring.max(1), 0))
     assert np.array_equal(d.numpy()[found], (w - arg)[found])
+
+
+# ------------------------------- the full DP kernel's split (near and far)
+
+from test_torch_kernel_edges import straddle_rows  # noqa: E402
+
+SPLIT_N = 256
+
+
+def _split_rows(kind, seed):
+    """(B, SPLIT_N) rows for chain_dp_split: sorted (random and dense rows,
+    an empty and a one-anchor row), the same shuffled, dense rows whose
+    anchors lie within dx-depth of many before them, tied rows (clusters
+    of equal anchors), and rows whose tied clusters straddle lookbacks 33
+    and 64."""
+    rng = np.random.default_rng(seed)
+    if kind == "tied":
+        return tied_rows(33, 6, SPLIT_N, seed)
+    if kind == "straddle":
+        return straddle_rows(4, SPLIT_N, seed)
+    if kind == "dense":
+        rows = [_random_row(rng, int(rng.integers(60, SPLIT_N)), y_span=300)
+                for _ in range(6)]
+    else:
+        rows = _random_rows(seed)[:7] + [[], _random_row(rng, 1)]
+    if kind == "shuffled":
+        rows = [[int(v) for v in rng.permutation(np.array(r, np.uint64))]
+                for r in rows]
+    return _pack(rows, N=SPLIT_N)
+
+
+@pytest.mark.parametrize("score_type", [0, 1])
+@pytest.mark.parametrize("D", [1, 2, 33, 64])
+@pytest.mark.parametrize("kind", ["sorted", "shuffled", "dense", "tied",
+                                  "straddle"])
+def test_chain_dp_split_matches_jax(kind, D, score_type):
+    """chain_dp_split (the full DP kernel's near part over the last D
+    columns by the packed key, its far part over j < i - D, the far part
+    winning a tie, padded columns equal to the one before them copied)
+    against JAX's batch_chain_dp on every column."""
+    arr, cnt = _split_rows(kind, 90 + D)
+    got = [t.numpy() for t in CD.chain_dp_split(
+        torch.from_numpy(arr), torch.from_numpy(cnt), D=D,
+        score_type=score_type)]
+    want = JCD.batch_chain_dp(jnp.asarray(arr), jnp.asarray(cnt),
+                              score_type=score_type)
+    _assert_same(got, [np.asarray(t) for t in want])
+    assert (got[0] >= 0).sum() > 40
+
+
+@pytest.mark.parametrize("D", [33, 64])
+def test_straddling_ties_take_the_far_j(D):
+    """On the straddle rows every winning total ties across the whole
+    cluster before a column, part of it within the last D columns and part
+    past them: the far part's (smaller) j wins, so each chained column
+    points at its previous cluster's first anchor."""
+    arr, cnt = straddle_rows(2, SPLIT_N)
+    p2 = CD.chain_dp_split(torch.from_numpy(arr), torch.from_numpy(cnt),
+                           D=D)[0].numpy()[0]
+    starts = np.flatnonzero(np.r_[True, arr[0, 1:] != arr[0, :-1]])
+    first = starts[np.searchsorted(starts, np.arange(SPLIT_N), "right") - 1]
+    prev_first = np.r_[-1, starts][np.searchsorted(starts, first)]
+    chained = p2 >= 0
+    assert chained.sum() > 100
+    assert np.array_equal(p2[chained], prev_first[chained])
+    # some of those ties had members on both sides of D
+    d = np.arange(SPLIT_N) - p2
+    assert (chained & (d > D) & (np.arange(SPLIT_N) - first < D)).any()
+
+
+def test_far_edge_prefilter_admits_every_positive_edge():
+    """far_edge_may_score, the full DP kernel's test before it scores a
+    far edge: every (dy, dx) on a grid past its bounds whose edge scores
+    positive under either score type satisfies it, and the bounds are
+    tight enough to be reached."""
+    dy = torch.arange(-60, 2400)[:, None]
+    dx = torch.arange(-250, 2800)[None, :]
+    dy, dx = dy.expand(-1, dx.shape[1]), dx.expand(dy.shape[0], -1)
+    yi, xi = 300000, 5_000_000
+    aj = _anchors_at(xi + dx.reshape(-1), yi + dy.reshape(-1))
+    ai = _anchors_at(torch.full_like(aj, xi), torch.full_like(aj, yi))
+    ok = CD.far_edge_may_score(dy.reshape(-1), dx.reshape(-1))
+    for fn in (CD._apx_chain_score, CD._apx_chain_score0):
+        pos = fn(aj, ai) > 0
+        assert pos.any() and not (pos & ~ok).any()
+    # beyond the grid: random pairs anywhere in the anchors' range
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.integers(0, 1 << 30, (2, 200000)))
+    y = torch.from_numpy(rng.integers(0, 1 << 20, (2, 200000)))
+    aj, ai = _anchors_at(x[0], y[0]), _anchors_at(x[1], y[1])
+    ok = CD.far_edge_may_score(y[0] - y[1], x[0] - x[1])
+    for fn in (CD._apx_chain_score, CD._apx_chain_score0):
+        assert not ((fn(aj, ai) > 0) & ~ok).any()
+
+
+def _anchors_at(x, y):
+    """int64 anchors whose getAnchorX is x and whose y is y."""
+    a = (((x - y + (1 << 20)) % (1 << 40)) << 20) + y
+    assert torch.equal(CD._anchor_x(a), x)
+    return a

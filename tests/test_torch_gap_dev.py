@@ -223,3 +223,74 @@ def test_past_the_kernel_tables_match_jax_kernel(limits, near):
                           want):
         assert np.array_equal(g.numpy(), np.asarray(w)), name
     assert (got[2] > 0).sum() >= 3
+
+
+# -------------------------------- the kernel's filtered formulation
+
+def _filtered_items(kind, rng, genome):
+    """Items for gap_anchors_filtered: random windows; windows on the
+    repeats (groups over the cap); read windows ending in 20 T bases, whose
+    9-mer val 2^18 - 1 no genome sample of these windows has, so vmax comes
+    only from a read 9-mer the filter drops; read windows of T only (the
+    filter empties them); windows near 2^30 and below 0 (ranked by key)."""
+    at = [2000, 5000, 9000, 15000, 30000, 33000]
+    if kind == "repeats":
+        return _items(rng, genome, 8, at=[11900, 19800, 4900, 12100])[0]
+    items = _items(rng, genome, 8, at=at)[0]
+    if kind in ("tail_only_vmax", "emptied"):
+        for it in items:
+            rw = it["rwin"].copy()
+            if kind == "emptied":
+                rw[:] = 3
+            else:
+                rw[-28:] = 3
+            it["rwin"] = rw
+    if kind == "near_2_30":
+        for t, it in enumerate(items):
+            it["gpos0"] = (1 << 30) - 1500 - 700 * t if t < 5 else -1200
+    if kind == "below_0":
+        # a genome entry at a position below 0 sits in the group of the val
+        # below its own (JAX's signed searchsorted): read 9-mers of that val
+        # pair with it
+        for t, it in enumerate(items):
+            it["gpos0"] = -1200 - 7 * t
+    return items
+
+
+@pytest.mark.parametrize("limits", [(1024, 4096, 16, 2048), (64, 512, 4, 96)],
+                         ids=["defaults", "small"])
+@pytest.mark.parametrize("kind", ["random", "repeats", "tail_only_vmax",
+                                  "emptied", "near_2_30", "below_0"])
+def test_filtered_formulation_matches_jax_kernel(kind, limits,
+                                                 repeat_genome):
+    """gap_anchors_filtered (the read 9-mers filtered by the hashed bitmap of
+    the genome vals after vmax has seen them all, both key sets sorted, the
+    pairs walked in (genome entry, read key) order, ranked by key only off
+    0 .. 2^30 - 5 g_max) against JAX's _gap_anchors_kernel: counts,
+    overflow flags, and anchors and keys up to min(count, m_out)."""
+    g_max, r_max, cap, m_out = limits
+    rng = np.random.default_rng(61 + len(kind))
+    items = _filtered_items(kind, rng, repeat_genome)
+    packed = GD.pack_items(items, g_max, r_max)
+    got = GD.gap_anchors_filtered(*(torch.from_numpy(x) for x in packed),
+                                  g_max, r_max, cap, m_out)
+    want = [np.asarray(t) for t in JGD._gap_anchors_kernel(
+        *packed, g_max=g_max, r_max=r_max, cap=cap, m_out=m_out)]
+    count = want[2]
+    assert np.array_equal(got[2].numpy(), count)
+    assert np.array_equal(got[3].numpy(), want[3])
+    defined = np.arange(m_out)[None, :] < np.minimum(count, m_out)[:, None]
+    for g, w in zip(got[:2], want[:2]):
+        assert np.array_equal(np.where(defined, g.numpy(), 0),
+                              np.where(defined, w, 0))
+    survivors, r_n = got[4].numpy(), np.minimum(packed[4], r_max)
+    if kind == "emptied":
+        assert not survivors.any() and not count.any() and not want[3].any()
+    else:
+        assert (count > 0).sum() >= 3 and (survivors < r_n).all()
+    if kind == "repeats":
+        assert want[3].any()
+    if kind == "tail_only_vmax":
+        # the largest val of the genome windows' samples is below the
+        # read's 2^18 - 1, and its group is kept
+        assert (survivors < r_n - 20).all() and count.sum() > 0

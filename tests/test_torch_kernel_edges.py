@@ -257,6 +257,27 @@ def tied_rows(w, n_rows, N, seed=0):
     return _pack_rows(rows, N)
 
 
+def straddle_rows(n_rows, N, seed=0):
+    """Rows of clusters of equal anchors 20 apart in x and y, of 40 and 70
+    anchors, so that a column's best totals (the whole cluster before it,
+    all tied) straddle lookback 33 and 64: the full DP kernel's near part
+    (the last 64 columns) and its far part hold equal totals, and the far
+    part's smaller j must win. Row 0 fills N; the others take N / 2 .. N
+    anchors, with a padded tail of zeros. (int64 (n_rows, N), counts
+    (n_rows,) int32)"""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for b in range(n_rows):
+        n = N if b == 0 else int(rng.integers(N // 2, N + 1))
+        row, c = [], 0
+        while len(row) < n:
+            row += [_anchor(500000 - 20 * c, 200000 - 20 * c)] * (
+                40 if c % 2 else 70)
+            c += 1
+        rows.append(row[:n])
+    return _pack_rows(rows, N)
+
+
 def adversarial_pairs(rng, n):
     """(a_j, a_i) anchor pairs at the score functions' branch edges: dy
     around 5, 10, 15 * 150 and 15 * 10000, da around 10, 30 and the
@@ -399,8 +420,9 @@ def test_scan_seeding_on_n_dense_reads(genome):
 
 @pytest.mark.cuda
 def test_full_dp_past_the_shared_memory_row():
-    """The full DP at N 12,288 (past 11,622 anchors in shared memory: the
-    row lives in the device scratch), sorted and shuffled rows."""
+    """The full DP at N 12,288, past the 11,622 anchors a row that the
+    first design kept in shared memory (the redesign keeps 12 bytes a
+    column there up to 18,944), sorted and shuffled rows."""
     _card()
     from linear_tpu_torch.ops import chain_dp as CD
 
@@ -882,3 +904,102 @@ def test_banded_edges(W):
     got = AP.banded_align(*args, W)
     assert AP.launches == before + 1
     assert torch.equal(got, AP.banded_align_reference(*args, W))
+
+
+# ------------------------------------------ the wide branch, near and far
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W,L", [(16385, None), (1, 1 << 25), (100, 1 << 25),
+                                 (600, 1 << 25), (26000, 1 << 15)])
+def test_banded_wide_branch(W, L):
+    """The banded kernel's wide branch: W 16,385 (one past the register
+    design; the edge pairs include a query of W + 21 bases), rows of L =
+    2^25 (the first length past it) at W 1, 100 and 600, and W 26,000 in
+    rows of 2^15, whose ring of min(2W, L + W + 1) + 1 ints passes the
+    shared-memory budget (the device scratch), against the plain
+    version."""
+    _card()
+    from linear_tpu_torch.ops import _cuda
+    from linear_tpu_torch.ops import align_pallas as AP
+
+    qry, ref = banded_edge_pairs(np.random.default_rng(W + 3), W)
+    args = [torch.from_numpy(x).cuda()
+            for x in AP.pack_pairs(qry, ref, W, L)]
+    assert W > AP.BANDED_MAX_W or args[0].shape[1] >= AP.BANDED_MAX_L
+    scratch = _cuda.lib().lt_banded_align_scratch(len(qry), args[0].shape[1],
+                                                  W)
+    assert (scratch > 0) == (W == 26000)
+    got = AP.banded_align(*args, W)
+    want = AP.banded_align_reference(*args, W)
+    assert torch.equal(got, want) and int(want.max()) > 100
+
+
+def _full_both(arr, cnt, **kw):
+    from linear_tpu_torch.ops import chain_dp as CD
+
+    a, c = torch.from_numpy(arr).cuda(), torch.from_numpy(cnt).cuda()
+    got = CD.chain_dp(a, c, **kw)
+    want = CD.chain_dp_reference(a, c, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+    return [t.cpu().numpy() for t in want]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depths", [(20, 300), (100, 50)],
+                         ids=["default", "depth_past_64"])
+def test_full_dp_across_the_near_far_boundary(depths):
+    """Rows whose winning totals tie across lookback 64 (clusters of 40
+    and 70 equal anchors, and of up to 16), both score types, at the
+    default depths and at a depth of 100 (past the chain's 64 lookbacks:
+    the depth term then admits far j too): every column equal to the plain
+    version; the far part's smaller j wins the ties."""
+    _card()
+    for score_type in (0, 1):
+        for arr, cnt in (straddle_rows(4, 512), tied_rows(64, 4, 512)):
+            p2 = _full_both(arr, cnt, thd_chain_depth=depths[0],
+                            thd_chain_dx_depth=depths[1],
+                            score_type=score_type)[0]
+            assert (p2 >= 0).sum() > 500
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [18944, 18945])
+def test_full_dp_at_the_shared_memory_limit(N):
+    """The full DP at N 18,944 (its tables, 12 bytes a column, the last
+    width in shared memory beside the tiles) and 18,945 (the first in the
+    device scratch): a chain of N anchors, 3,000 of them shuffled with a
+    padded tail of distinct anchors (no column copies another), and an
+    empty row."""
+    _card()
+    rng = np.random.default_rng(N)
+    chain = [_anchor(900000 - 20 * k, 900000 - 20 * k) for k in range(N)]
+    arr, cnt = _pack_rows([chain, [chain[k] for k in rng.permutation(3000)],
+                           []], N)
+    arr[1, 3000:] = rng.integers(0, 1 << 50, N - 3000)
+    out = _full_both(arr, cnt)
+    assert out[2][0, N - 1] == N and out[1][0, N - 1] == 100 * (N - 1)
+
+
+@pytest.mark.cuda
+def test_gap_anchors_filter_empties_items(genome):
+    """Items whose read windows hold only T (val 2^18 - 1, which no sample
+    of these genome windows has: the hashed bitmap filter drops every read
+    9-mer, and vmax comes from them alone), beside items whose read windows
+    end in T and ordinary ones: the kernel against the plain version. (The
+    windows starting below 0, whose entries sit in the group of the val
+    below their own, are test_gap_anchors_near_2_30_past_m_out's.)"""
+    _card()
+    g, _ = genome
+    rng = np.random.default_rng(39)
+    items = _gap_items(g, rng, 12, 3000, 2500)
+    for t, it in enumerate(items[:8]):
+        rw = it["rwin"].copy()
+        if t < 4:
+            rw[:] = 3
+        else:
+            rw[-28:] = 3
+        it["rwin"] = rw
+    count = _gap_both(items, 1024, 4096, 16, 2048)
+    # (odd items are bounded to a diagonal band their reads miss)
+    assert not count[:4].any() and (count[4::2] > 0).all()

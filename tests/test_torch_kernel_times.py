@@ -77,3 +77,52 @@ def test_seed_corpus_feeds_the_seed_and_sort_cases():
     a, keep = KT.sort_inputs(index, reads, 4, KT.CORPUS_PAD, KT.SORT_CAP)
     assert tuple(a.shape) == (4, 544, 352) and a[0].numel() == 191_488
     assert 0 < int(keep.sum()) < keep.numel() // 100
+
+
+def test_wide_rows_feed_the_12288_case():
+    """The full DP's (4, 12,288) case: two long-read rows sorted by
+    anchor-x, one chain of 12,288 anchors (every column chained, score 100
+    a link) and 3,000 of them shuffled; the chain's first columns through
+    the plain full DP."""
+    rows = KT.wide_rows(np.random.default_rng(2))
+    arr, cnt = KT.pad_rows(rows, KT.WIDE_N)
+    assert arr.shape == (4, 12288) and cnt[2] == 12288 and cnt[3] == 3000
+    a = torch.from_numpy(arr)
+    x = CD._anchor_x(a)
+    for b in range(3):
+        n = cnt[b]
+        assert bool((x[b, : n - 1] >= x[b, 1:n]).all())
+    assert not bool((x[3, :2999] >= x[3, 1:3000]).all())
+    head = a[2:3, :300].clone()
+    p2, score, length = CD.chain_dp_reference(
+        head, torch.tensor([300], dtype=torch.int32))
+    assert p2[0, 1:].tolist() == list(range(299))
+    assert score[0, 299] == 100 * 299 and length[0, 299] == 300
+
+
+def test_wide_rows_feed_the_scratch_case():
+    """The full DP's (4, 20,480) case: past the 18,944 anchors a row whose
+    tables fit the kernel's shared memory; one chain of 20,480 anchors,
+    sorted by anchor-x, and 3,000 of them shuffled."""
+    rows = KT.wide_rows(np.random.default_rng(10), KT.SCRATCH_N)
+    arr, cnt = KT.pad_rows(rows, KT.SCRATCH_N)
+    assert KT.SCRATCH_N > 18944
+    assert arr.shape == (4, KT.SCRATCH_N) and cnt[2] == KT.SCRATCH_N
+    x = CD._anchor_x(torch.from_numpy(arr))
+    assert bool((x[2, :-1] > x[2, 1:]).all()) and cnt[3] == 3000
+
+
+def test_banded_wide_case_fits_the_wide_branch():
+    """The banded W 16,385 case: 16 of the pairs cut to 1,000 bases take
+    the kernel's wide branch, and its statement (banded_align_ring, held to
+    the plain version and JAX in test_torch_align_pallas.py) scores them
+    all above 0."""
+    from linear_tpu_torch.ops import align_pallas as AP
+
+    qry, ref = KT.band_pairs(np.random.default_rng(4), 16)
+    W = KT.BANDED_WIDE_W
+    a, bpad, nm = (torch.from_numpy(x) for x in AP.pack_pairs(
+        [q[:1000] for q in qry], [r[:1000] for r in ref], W))
+    assert W > AP.BANDED_MAX_W  # the wide branch
+    assert a.shape == (16, 1024) and bpad.shape == (16, 1024 + 2 * W)
+    assert bool((AP.banded_align_ring(a, bpad, nm, W) > 0).all())
