@@ -19,8 +19,8 @@ Phases, each of which raises (exit code != 0) on failure:
      8,192 (32, 262144, 8192), whose rows pass the 4,096 slots the kernel
      keeps in shared memory: exact equality on the defined
      part of every row (anchors[:count] and the count | probed << 32
-     tail); times from CUDA events, and the card's busy time
-     (torch.profiler) beside them;
+     tail); times from CUDA events, and the card's busy time (below)
+     beside them;
   5. the extension kernel (_filterHits + path_dst_2) against its plain
      version, both on the card, at the -b 0 path's shape (B, pad, H, C, R)
      = (1024, 8192, 256, 512, 510), with the hits of the native first pass
@@ -53,7 +53,7 @@ Phases, each of which raises (exit code != 0) on failure:
      tables in the device scratch) on two long-read rows, one chain of N
      anchors and a shuffled row, each exactly equal to its plain version;
      the (256, 8192), (4, 12,288) and (4, 20,480) full DP launches with the
-     card's busy time (torch.profiler) beside their CUDA-event times;
+     card's busy time beside their CUDA-event times;
   8. the main paths, `python -m linear_tpu_torch filter reads genome -t
      <ncpu> -ot 2` as subprocesses:
        -b 1 in turns with --device cuda, host, host, cuda: all SAM files
@@ -100,7 +100,7 @@ Phases, each of which raises (exit code != 0) on failure:
        and one over the 1,024 items a row sorts in registers and the 8,192
        of a shared-memory tile): every column and count exactly equal;
        torch.sort(stable=True) + gather timed beside it as the library
-       call, the card's busy time (torch.profiler) beside the CUDA-event
+       call, the card's busy time beside the CUDA-event
        time;
        (b) mapping_step with either seeder at (MESH_B, MESH_PAD), n_max
        256 (the sort kernel inside), against the same step built from the
@@ -144,8 +144,20 @@ Phases, each of which raises (exit code != 0) on failure:
      Python engine); --save-index, then --load-index of that file with
      -i 1, whose SAM must be phase 8's. With -i 2/3 and -f 0/1 the device
      does no work (as in linear_tpu), the cuda run must say so, and the
-     cuda and host runs of each go side by side.
-Every kernel's entry carries its bound (bound(): bytes over the HBM rate or
+     cuda and host runs of each go side by side;
+ 12. the rest of linear_tpu's surface: Mapper.warmup() on the card (its
+     time, and the seed and chain DP launches it makes), then
+     Mapper._device_seed_block on the first BLOCK_READS corpus reads,
+     every entry equal to a --device cpu Mapper's (the plain version) and
+     None at the same reads, its seed kernel launches counted; then
+     `python -m linear_tpu_torch.tools.profile_stages 1024 --json` (its
+     JSON line printed) and `... tools.bench_devbuild 46.7`, whose device
+     DIndex build must equal the host build, each in a process of its own.
+The card's busy time of each kernel call that a phase times (the
+"device_ms" of each shape: at least one a kernel) is measured after phase
+12 in one fresh process (Busy, `kernel_times --busy`), with each traced
+event's count logged beside the launches its window made. Every kernel's
+entry carries its bound (common.bound(): bytes over the HBM rate or
 operations over the scalar rate, counted from this run's inputs) and, for
 the compaction and the anchor sort, the stable sort's time as library_ms.
 It prints the kernels as one JSON line, the nvidia-smi line, and last
@@ -165,11 +177,17 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
+try:
+    from linear_tpu_torch.tools import common
+    from linear_tpu_torch.tools.common import bound, n_calls, seed_bound
+except ImportError as e:  # not beside the rest of the repository
+    print(f"chip_smoke: linear_tpu_torch is not importable: {e}",
+          file=sys.stderr)
+    sys.exit(1)
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
-GENOME_LEN = 4_600_000
-N_READS = 10240
-READ_LEN = 7000
-SEED = 42
+N_READS = common.N_READS
+SEED = common.SEED
 # (rows, pad, m_out): the two tiers of Mapper._device_seed_stream2 at the
 # corpus' pad, and the longest reads the device seeds
 # and JAX's default m_out, 8,192, past the 4,096 slots the kernel keeps in
@@ -202,6 +220,9 @@ FULL_WIDE_NS = (12288, 20480)
 # engine maps some 470 reads/s at -b 1 and 65 at -b 0, and -a 1 about 5):
 # the genome stays whole
 PY_B1_READS, PY_B0_READS, ALN_READS = 2048, 256, 24
+# phase 12: the reads Mapper._device_seed_block seeds on the card and on the
+# CPU (the plain version)
+BLOCK_READS = 2048
 # phase 11's Python-engine configurations (-i 3, -f 0, -f 1)
 OTHER_READS = 512
 # phase 9: the padded seeding kernels at (rows, pad) with the index's cap,
@@ -230,12 +251,6 @@ GAP_EDGE_LIMITS = ((1025, 4096, False), (1024, 4097, False),
                    (1024, 4096, True))
 ALN_ORACLE_READS = 48
 GAP_ITEMS, GAP_ORACLE_ITEMS = 512, 32
-# the least time of a kernel's work: its bytes over the H100 SXM's HBM3 rate,
-# or its integer operations over the card's rate outside the tensor cores
-# (67 T/s, the H100 SXM's float32 non-tensor peak, taken for its integer rate
-# too), whichever is larger
-HBM_BYTES_S = 3.35e12
-SCALAR_OPS_S = 67e12
 # the launches of the last three kernels are those of their own entry
 # points: no CLI path runs them, as no path of linear_tpu runs its
 ENTRY_ONLY = "entry point only: no CLI path runs it, as in linear_tpu"
@@ -243,13 +258,6 @@ ENTRY_ONLY = "entry point only: no CLI path runs it, as in linear_tpu"
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def nvidia_smi() -> str:
-    res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True)
-    return res.stdout.strip().splitlines()[0]
 
 
 def mutate(rng, seg):
@@ -297,22 +305,6 @@ def edge_reads(genome):
     return reads + [seqio.revcomp(reads[1])]
 
 
-def bound(nbytes: float, ops: float) -> dict:
-    """bound_ms and bound_by of a kernel's work (see HBM_BYTES_S)."""
-    t_b = nbytes / HBM_BYTES_S * 1e3
-    t_o = ops / SCALAR_OPS_S * 1e3
-    return {"bound_ms": max(t_b, t_o),
-            "bound_by": "bytes" if t_b >= t_o else "operations",
-            "bytes": int(nbytes), "ops": int(ops)}
-
-
-def n_calls(lens, thd_alpha: int = 15) -> int:
-    """In-range call positions of reads of these lengths (k = 35 + 15p
-    < len - 21): what the seeding kernels probe at most."""
-    lens = np.asarray(lens, dtype=np.int64)
-    return int(np.maximum(0, -(-(lens - 56) // thd_alpha)).sum())
-
-
 def time_ms(fn, iters: int) -> float:
     import torch
 
@@ -328,33 +320,88 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int, launched=None):
-    """The card's busy time a call of fn (ms): kernel_times.device_ms, the
-    device time of every kernel, copy and fill that torch.profiler traces
-    over iters calls after an untraced one, a kernel traced count times
-    counting count / iters launches a call at its mean (one when fewer
-    than half were traced). The gap to time_ms is the host's share. The
-    profiler at times delivers no device event for a window in which fn
-    launched its kernels (seen on the H100 for the banded, sort and full DP
-    kernels, not for the same calls in a fresh process), or fewer than the
-    window launched: a window without a device event is traced again, twice
-    at most, then None. Logs each traced event's count beside the launches
-    the window made by the entry point's counter (`launched`), so that a
-    dropped event shows, and each window that traced none."""
-    from linear_tpu_torch.kernel_times import device_ms as traced
+class Busy:
+    """The card's busy time of kernel calls, measured after the checks in a
+    fresh process (`python -m linear_tpu_torch.kernel_times --busy`, which
+    times each call with kernel_times.device_ms): torch.profiler in this
+    long process at times delivers no device event for a window (on the
+    H100, in more than half of a whole run's windows), while a fresh
+    process traces every launch. add() keeps a call's inputs in host
+    memory (each tensor once) with the record whose "device_ms" the
+    measurement fills: the sum of the busy times of every call added for
+    it, None when one of them traced nothing."""
 
-    for window in range(3):
-        counts = {}
-        before = launched() if launched else 0
-        ms = traced(fn, iters, counts=counts)
-        made = ((launched() - before) * iters // (iters + 1)
-                if launched else "not counted")
-        log(f"  device events traced over {iters} calls (kernel launches "
-            f"{made}), window {window + 1}: "
-            + (", ".join(f"{k} {v}" for k, v in counts.items()) or "none"))
-        if ms:
-            return ms
-    return None
+    def __init__(self):
+        self.jobs, self.records, self._host = [], [], {}
+
+    def add(self, record: dict, fn: str, args, iters: int, counter: str,
+            **kw) -> dict:
+        """fn and counter: "module:name" under linear_tpu_torch of the
+        entry point and of its launch count."""
+        self.jobs.append(("linear_tpu_torch." + fn, self._to_host(args),
+                          self._to_host(kw), iters,
+                          "linear_tpu_torch." + counter))
+        self.records.append(record)
+        record["device_ms"] = None
+        return record
+
+    def _to_host(self, obj):
+        import dataclasses
+
+        import torch
+
+        if isinstance(obj, torch.Tensor):
+            if id(obj) not in self._host:
+                self._host[id(obj)] = (obj, obj.cpu())
+            return self._host[id(obj)][1]
+        if isinstance(obj, (list, tuple)):
+            return type(obj)(self._to_host(o) for o in obj)
+        if isinstance(obj, dict):
+            return {k: self._to_host(v) for k, v in obj.items()}
+        if dataclasses.is_dataclass(obj):
+            return dataclasses.replace(obj, **{
+                f.name: self._to_host(getattr(obj, f.name))
+                for f in dataclasses.fields(obj)})
+        return obj
+
+    def measure(self, d: str) -> None:
+        """Time every queued call in one fresh process; fill the records and
+        log each call's traced device events beside the launches the window
+        made."""
+        import torch
+
+        path = os.path.join(d, "busy_jobs.pt")
+        torch.save(self.jobs, path)
+        self._host.clear()
+        res = subprocess.run(
+            [sys.executable, "-m", "linear_tpu_torch.kernel_times", "--busy",
+             path], cwd=ROOT, capture_output=True, text=True, timeout=900)
+        os.remove(path)
+        if res.returncode:
+            raise AssertionError("the busy-time process failed: "
+                                 + res.stderr[-3000:])
+        self.fill(json.loads(res.stdout.strip().splitlines()[-1]))
+
+    def fill(self, out: list) -> None:
+        """The busy process's result (one entry a job, in order) into the
+        records, logged; the queue starts empty again."""
+        for rec in self.records:
+            rec["device_ms"] = 0.0
+        for (fn, _, _, iters, _), rec, r in zip(self.jobs, self.records, out):
+            log(f"busy {fn.split('.')[-1]} {rec.get('shape', '')}: "
+                f"{_ms(r['device_ms'])} ms a call")
+            for k, w in enumerate(r["windows"]):
+                log(f"  device events traced over {iters} calls (kernel "
+                    f"launches {w['launches']}), window {k + 1}: " + (", ".join(
+                        f"{e} {n}" for e, n in w["events"].items())
+                        or "none"))
+            if rec["device_ms"] is not None:
+                rec["device_ms"] = (None if r["device_ms"] is None
+                                    else rec["device_ms"] + r["device_ms"])
+        self.jobs, self.records = [], []
+
+
+BUSY = Busy()
 
 
 def _ms(x) -> str:
@@ -414,16 +461,13 @@ def check_kernel(index, genome, rng):
                              zip(got[:, -1], want[:, -1]) if a != b] + [0])
         n_over = int((probed > m_out).sum())
         ms = time_ms(lambda: SD.seed_superchunk(w, index, m_out), 20)
-        dev_ms = device_ms(lambda: SD.seed_superchunk(w, index, m_out), 20,
-                           lambda: SD.launches)
         plain_ms = time_ms(lambda: SD.seed_superchunk_reference(
             w, index.dir_start, index.hs, index.cap, m_out), 5)
         log(f"kernel check rows={rows} pad={pad} m_out={m_out}: "
             f"defined entries {int(defined.sum())}, mismatches {len(bad)}, "
             f"tail mismatches {bad_tail}, N rows {int(n_mask[:len(reads)].sum())}, "
             f"overflow rows {n_over}, max probed {int(probed.max())}; "
-            f"kernel {ms:.4f} ms (card busy {_ms(dev_ms)} ms), plain "
-            f"{plain_ms:.4f} ms")
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
         if bad_tail or len(bad):
             raise AssertionError(f"kernel disagrees with the plain version "
                                  f"at {(rows, pad, m_out)}")
@@ -435,34 +479,14 @@ def check_kernel(index, genome, rng):
         # the wire in, the rows out, two dir words a call position and an
         # hs entry a probed slot below m_out; ~150 operations a position
         # (window, nine candidates, YValue), ~20 a slot
-        calls = n_calls([min(len(r), pad) for r in reads])
-        slots = int(np.minimum(probed, m_out).sum())
-        results.append({"shape": [rows, pad, m_out], "ms": ms,
-                        "device_ms": dev_ms, "plain_ms": plain_ms,
-                        "max_abs_err": max_abs_err,
-                        **bound(wire.nbytes + rows * (m_out + 1) * 8
-                                + 8 * calls + 8 * slots,
-                                150 * calls + 20 * slots)})
+        results.append(BUSY.add(
+            {"shape": [rows, pad, m_out], "ms": ms, "plain_ms": plain_ms,
+             "max_abs_err": max_abs_err,
+             **seed_bound(wire.nbytes, rows, m_out,
+                          [min(len(r), pad) for r in reads], probed)},
+            "ops.seeding:seed_superchunk", (w, index, m_out), 20,
+            "ops.seeding:launches"))
     return results
-
-
-def make_corpus(d):
-    from linear_tpu_torch.utils import seqio, simdata
-
-    g_fa = os.path.join(d, "genome.fa")
-    r_fa = os.path.join(d, f"reads{N_READS}.fa")
-    rng = np.random.default_rng(SEED)
-    genome = simdata.make_genomic_genome(rng, GENOME_LEN)
-    if not (os.path.exists(g_fa) and os.path.exists(r_fa)):
-        reads = simdata.simulate_reads(rng, genome, N_READS, READ_LEN)
-        seqio.write_fasta(g_fa + ".tmp", ["U00096.3 synthetic"], [genome])
-        seqio.write_fasta(r_fa + ".tmp", [f"read{i} sim" for i in range(N_READS)],
-                          reads)
-        os.replace(g_fa + ".tmp", g_fa)
-        os.replace(r_fa + ".tmp", r_fa)
-    return genome, g_fa, r_fa
-
-
 
 
 def make_nfree(d, genome):
@@ -520,30 +544,29 @@ def _extend_launch(ED, m, reads, hits, pad, C, tag):
     n_ovf = int(want[2].sum())
     n_ext = int((want[1] > 1).sum())
     ms = time_ms(lambda: ED.filter_extend(*args, gf, C), 10)
-    dev_ms = device_ms(lambda: ED.filter_extend(*args, gf, C), 10,
-                       lambda: ED.launches)
     plain_ms = time_ms(lambda: ED.filter_extend_reference(
         *args, gf, C, R), 1)
     log(f"extension check{tag} (B, pad, H, C, R) = {(B, pad, EXT_H, C, R)}: "
         f"rows with cords {n_ext}, overflow rows {n_ovf}, cords "
         f"{int(want[1].sum())}, equal {same}, max_abs_err {err}; work "
-        f"{json.dumps(work)}; kernel {ms:.4f} ms (device {_ms(dev_ms)}), "
-        f"plain {plain_ms:.4f} ms")
+        f"{json.dumps(work)}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
     if not same:
         raise AssertionError(f"extension kernel disagrees with the plain "
                              f"version at {(B, pad, C)}")
     # reads and hits in, the distinct genome feature rows read (12 bytes
     # each), cords out; the read strands' chunks and feature rows and the
     # window evaluations' lane distances as operations
-    return {"shape": [B, pad, EXT_H, C, R], "ms": ms, "device_ms": dev_ms,
-            "plain_ms": plain_ms,
-            "max_abs_err": err, "overflow_rows": n_ovf,
-            "extended_rows": n_ext, "work": work,
-            **bound(sum(a.nbytes for a in (packed, lens, hm, hn))
-                    + 12 * work["genome_rows"] + B * (C * 8 + 4 + 1),
-                    EXT_OPS_CHUNK * work["read_chunks"]
-                    + EXT_OPS_ROW * work["read_rows"]
-                    + EXT_OPS_LANE * work["lane_distances"])}
+    return BUSY.add(
+        {"shape": [B, pad, EXT_H, C, R], "ms": ms, "plain_ms": plain_ms,
+         "max_abs_err": err, "overflow_rows": n_ovf,
+         "extended_rows": n_ext, "work": work,
+         **bound(sum(a.nbytes for a in (packed, lens, hm, hn))
+                 + 12 * work["genome_rows"] + B * (C * 8 + 4 + 1),
+                 EXT_OPS_CHUNK * work["read_chunks"]
+                 + EXT_OPS_ROW * work["read_rows"]
+                 + EXT_OPS_LANE * work["lane_distances"])},
+        "ops.extend_dev:filter_extend", (*args, gf, C), 10,
+        "ops.extend_dev:launches")
 
 
 def check_extend(g_fa, r_fa, genome, threads, rng):
@@ -664,12 +687,11 @@ def check_devbuild(g, threads):
     err = _max_abs_err(got, want)
     same = all(np.array_equal(a, b) for a, b in zip(got, want))
     ms = time_ms(kernel, 5)
-    dev_ms = device_ms(kernel, 5, lambda: DB.launches)
     plain_ms = time_ms(plain, 2)
     log(f"devbuild check: genome {len(g)} b, {len(j)} samples, hs "
         f"{len(host.hs)} entries, cap {cap_host}; equal to the host build; "
         f"kernels vs plain equal {same}, max_abs_err {err}; kernels {ms:.4f} "
-        f"ms (device {_ms(dev_ms)}), plain {plain_ms:.4f} ms; whole build on "
+        f"ms, plain {plain_ms:.4f} ms; whole build on "
         f"the card {t_build:.4f} "
         f"s vs host build {t_host:.4f} s + upload {t_up:.4f} s")
     if not same:
@@ -678,10 +700,15 @@ def check_devbuild(g, threads):
     # the genome and the sample positions in, dir and hs out; ~150
     # operations a sample (window, nine candidates, YValue)
     n_dir = 4 ** 13 + 1
-    return {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
-            "max_abs_err": err, "build_s": t_build, "upload_s": t_up, "host_build_s": t_host,
-            **bound(g.nbytes + j.nbytes + bs.nbytes + 4 * n_dir
-                    + 8 * len(host.hs), 150 * len(j))}
+    rec = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+           "build_s": t_build, "upload_s": t_up, "host_build_s": t_host,
+           **bound(g.nbytes + j.nbytes + bs.nbytes + 4 * n_dir
+                   + 8 * len(host.hs), 150 * len(j))}
+    # the busy time of both build kernels: the states, then the sort
+    BUSY.add(rec, "ops.devbuild:sample_states", (gt, jt), 5,
+             "ops.devbuild:launches")
+    return BUSY.add(rec, "ops.devbuild:emit_count_sort",
+                    (*ks, jt, gid, bst), 5, "ops.devbuild:launches")
 
 
 def check_chain_dp(g_fa, r_fa, genome, threads, rng):
@@ -756,11 +783,13 @@ def check_chain_dp(g_fa, r_fa, genome, threads, rng):
         # earlier ones, ~40 integer operations an edge (getApxChainScore
         # with its truncating divisions)
         edges = sum(int(np.minimum(np.arange(c), 64).sum()) for c in cnt)
-        results.append({"shape": [len(rs), N], "rows": kind, "ms": ms,
-                        "plain_ms": plain_ms, "max_abs_err": err,
-                        "overflow_rows": n_ovf,
-                        **bound(arr.nbytes + cnt.nbytes + len(rs) * (12 * N + 1),
-                                40 * edges)})
+        results.append(BUSY.add(
+            {"shape": [len(rs), N], "rows": kind, "ms": ms,
+             "plain_ms": plain_ms, "max_abs_err": err, "overflow_rows": n_ovf,
+             **bound(arr.nbytes + cnt.nbytes + len(rs) * (12 * N + 1),
+                     40 * edges)},
+            "ops.chain_dp:chain_dp_windowed", (a, c), 10,
+            "ops.chain_dp:launches"))
 
     # any W: the (256, 512) corpus rows at W 1, 33 and 128 (a lane takes
     # one, two and four lookbacks; 64 is the Mapper's, above)
@@ -816,15 +845,13 @@ def check_chain_dp(g_fa, r_fa, genome, threads, rng):
                 n_win_same += all(np.array_equal(x[b, :n], y[b, :n])
                                   for x, y in zip(got, win[:3]))
         ms = time_ms(lambda: CD.chain_dp(a, c), 3 if N > 512 else 10)
-        dev_ms = (device_ms(lambda: CD.chain_dp(a, c), 3,
-                            lambda: CD.full_launches) if N > 512 else None)
         edges = full_dp_edges(a, c)
         log(f"full chain DP check (B, N) = {tuple(a.shape)}, {kind} rows: "
             f"chained columns {int((want[0] >= 0).sum())}, admitted edges "
             f"{edges}, equal to the plain version on every column {same}, "
             f"max_abs_err {err}; equal to the windowed kernel on [:n] of "
             f"{n_win_same} of {n_win} rows it does not flag; kernel {ms:.4f} "
-            f"ms (card busy {_ms(dev_ms)} ms), plain {plain_ms:.4f} ms")
+            f"ms, plain {plain_ms:.4f} ms")
         if not same:
             raise AssertionError(f"the full chain DP kernel disagrees with "
                                  f"the plain version ({kind} rows)")
@@ -834,10 +861,13 @@ def check_chain_dp(g_fa, r_fa, genome, threads, rng):
         # anchors in, three int32 tables out; ~40 integer operations an
         # admitted edge (getApxChainScore and the compare), every column
         full.append({"shape": list(a.shape), "rows": kind, "ms": ms,
-                     "device_ms": dev_ms, "plain_ms": plain_ms,
+                     "device_ms": None, "plain_ms": plain_ms,
                      "max_abs_err": err,
                      **bound(a.numel() * 8 + c.numel() * 4 + 12 * a.numel(),
                              40 * edges)})
+        if N > 512:
+            BUSY.add(full[-1], "ops.chain_dp:chain_dp", (a, c), 3,
+                     "ops.chain_dp:full_launches")
     # the rows at N 12,288 (past the 11,622 anchors a row that the first
     # design kept in shared memory) and 20,480 (past the 18,944 of the
     # redesign: its scratch branch): two long-read rows and two hand-built
@@ -850,8 +880,6 @@ def check_chain_dp(g_fa, r_fa, genome, threads, rng):
         a, c = on_card(wide_rows, N)[2:]
         got = CD.chain_dp(a, c)
         ms = time_ms(lambda: CD.chain_dp(a, c), 3)
-        dev_ms = device_ms(lambda: CD.chain_dp(a, c), 3,
-                           lambda: CD.full_launches)
         want, plain_ms = time_once(lambda: CD.chain_dp_reference(a, c))
         got = [t.cpu().numpy() for t in got]
         want = [t.cpu().numpy() for t in want]
@@ -861,16 +889,16 @@ def check_chain_dp(g_fa, r_fa, genome, threads, rng):
         log(f"full chain DP check (B, N) = {tuple(a.shape)}, long, chain and "
             f"shuffled rows: chained columns {int((want[0] >= 0).sum())}, "
             f"admitted edges {edges}, equal {same}, max_abs_err {err}; "
-            f"kernel {ms:.4f} ms (card busy {_ms(dev_ms)} ms), plain "
-            f"{plain_ms:.4f} ms")
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
         if not same or want[2][2].max() != N:
             raise AssertionError(f"the full chain DP kernel disagrees with "
                                  f"the plain version at {N:,} anchors a row")
-        full.append({"shape": list(a.shape), "rows": "long, chain, shuffled",
-                     "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
-                     "max_abs_err": err,
-                     **bound(a.numel() * 8 + c.numel() * 4 + 12 * a.numel(),
-                             40 * edges)})
+        full.append(BUSY.add(
+            {"shape": list(a.shape), "rows": "long, chain, shuffled",
+             "ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+             **bound(a.numel() * 8 + c.numel() * 4 + 12 * a.numel(),
+                     40 * edges)},
+            "ops.chain_dp:chain_dp", (a, c), 3, "ops.chain_dp:full_launches"))
     del windowed, full_in, full_out
     torch.cuda.empty_cache()
     return results, full, full_launches
@@ -1005,8 +1033,6 @@ def check_anchor_sort(name, anc, keep, rng, hand_rows: bool) -> list:
         torch.cuda.synchronize()
         same = _equal_all(got, want) and _equal_all(got, lib)
         ms = time_ms(lambda: CD.sort_anchors(anc, keep, n_max), 20)
-        dev_ms = device_ms(lambda: CD.sort_anchors(anc, keep, n_max), 20,
-                           lambda: CD.sort_launches)
         plain_ms = time_ms(lambda: CD.sort_anchors_reference(
             anc, keep, n_max), 3)
         lib_ms = time_ms(lambda: sort_by_library(anc, keep, n_max), 3)
@@ -1015,8 +1041,7 @@ def check_anchor_sort(name, anc, keep, rng, hand_rows: bool) -> list:
             f"kept {kept} (a row at most {int(kept_rows.max())}), rows "
             f"over n_max {int((kept_rows > n_max).sum())}, every column "
             f"and count equal to the plain version and to the library "
-            f"sort {same}; kernel {ms:.4f} ms (card busy {_ms(dev_ms)} ms), "
-            f"plain {plain_ms:.4f} ms, "
+            f"sort {same}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"torch.sort(stable=True) + gather {lib_ms:.4f} ms")
         if not same:
             raise AssertionError(f"the anchor sort kernel disagrees on "
@@ -1024,12 +1049,14 @@ def check_anchor_sort(name, anc, keep, rng, hand_rows: bool) -> list:
         # what this grid needs: every keep flag, the kept anchors (no
         # other slot is read), the rows and counts out; ~3 operations a
         # flag and ~4 a comparator of each row's sorting network
-        out.append({"shape": [B, n, n_max], "rows": name, "ms": ms,
-                    "device_ms": dev_ms, "plain_ms": plain_ms,
-                    "library_ms": lib_ms,
-                    "max_abs_err": 0, "kept": kept,
-                    **bound(B * n + 8 * kept + B * (8 * n_max + 4),
-                            3 * B * n + 4 * network_comparators(kept_rows))})
+        out.append(BUSY.add(
+            {"shape": [B, n, n_max], "rows": name, "ms": ms,
+             "plain_ms": plain_ms, "library_ms": lib_ms,
+             "max_abs_err": 0, "kept": kept,
+             **bound(B * n + 8 * kept + B * (8 * n_max + 4),
+                     3 * B * n + 4 * network_comparators(kept_rows))},
+            "ops.chain_dp:sort_anchors", (anc, keep, n_max), 20,
+            "ops.chain_dp:sort_launches"))
     for n_max in SORT_N_MAXES if hand_rows else ():
         anc, keep = hand_sort_rows(rng, n, n_max)
         got = CD.sort_anchors(anc, keep, n_max)
@@ -1215,9 +1242,12 @@ def check_padded_seeding(r_fa, idx, genome, rng):
                                  f"plain version ({kind})")
         if len(rs) != MESH_B or (scan_grid is None and n_n != len(with_n)):
             raise AssertionError(f"the scan launch ({kind}) is not as planned")
-        out["scan"].append({"shape": [len(rs), MESH_PAD, cap], "rows": kind,
-                            "ms": ms, "plain_ms": plain_ms, "max_abs_err": 0,
-                            **_grid_bound(seqs, lens, P, cap, kept)})
+        out["scan"].append(BUSY.add(
+            {"shape": [len(rs), MESH_PAD, cap], "rows": kind, "ms": ms,
+             "plain_ms": plain_ms, "max_abs_err": 0,
+             **_grid_bound(seqs, lens, P, cap, kept)},
+            "ops.seeding:batch_seed_anchors", args, 10,
+            "ops.seeding:scan_launches"))
         if scan_grid is None:
             scan_grid = got
         del want
@@ -1232,8 +1262,6 @@ def check_padded_seeding(r_fa, idx, genome, rng):
         same = _equal_all(got, want) and _equal_all(got, lib)
         n_ovf = int((want[1] > m_out).sum())
         ms = time_ms(lambda: SD.compact_anchors(anc, keep, m_out), 20)
-        dev_ms = device_ms(lambda: SD.compact_anchors(anc, keep, m_out), 20,
-                           lambda: SD.compact_launches)
         plain_ms = time_ms(lambda: SD.compact_anchors_reference(
             anc, keep, m_out), 3)
         lib_ms = time_ms(lambda: compact_by_sort(anc, keep, m_out), 5)
@@ -1241,20 +1269,20 @@ def check_padded_seeding(r_fa, idx, genome, rng):
         log(f"compaction check (B, n, m_out) = {(B, n, m_out)}: kept "
             f"{int(want[1].sum())}, overflow rows {n_ovf}, equal to the plain "
             f"version and to the stable-sort compaction {same}; kernel "
-            f"{ms:.4f} ms (card busy {_ms(dev_ms)} ms), plain {plain_ms:.4f} "
-            f"ms, torch.sort(stable=True) {lib_ms:.4f} ms")
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.sort(stable=True) "
+            f"{lib_ms:.4f} ms")
         if not same:
             raise AssertionError(f"the compaction kernel disagrees at m_out "
                                  f"{m_out}")
         # what this grid needs: every keep flag, the kept anchors (no
         # other slot is read), the rows and counts out; ~3 operations a flag
         kept = int(want[1].sum())
-        out["compact"].append({"shape": [B, n, m_out], "ms": ms,
-                               "device_ms": dev_ms,
-                               "plain_ms": plain_ms, "library_ms": lib_ms,
-                               "max_abs_err": 0, "overflow_rows": n_ovf,
-                               **bound(B * n + 8 * kept + B * (8 * m_out + 4),
-                                       3 * B * n)})
+        out["compact"].append(BUSY.add(
+            {"shape": [B, n, m_out], "ms": ms, "plain_ms": plain_ms,
+             "library_ms": lib_ms, "max_abs_err": 0, "overflow_rows": n_ovf,
+             **bound(B * n + 8 * kept + B * (8 * m_out + 4), 3 * B * n)},
+            "ops.seeding:compact_anchors", (anc, keep, m_out), 20,
+            "ops.seeding:compact_launches"))
     check_compact_hand_rows(rng, anc[0].numel())
     # the anchor sort on that grid, and on the hand-built rows
     out["sort"] = check_anchor_sort(
@@ -1276,9 +1304,12 @@ def check_padded_seeding(r_fa, idx, genome, rng):
     if not same:
         raise AssertionError("the closed-form kernel disagrees with the plain "
                              "version")
-    out["fast"].append({"shape": [MESH_B, MESH_PAD, cap], "rows": "N-free",
-                        "ms": ms, "plain_ms": plain_ms, "max_abs_err": 0,
-                        **_grid_bound(seqs, lens, P, cap, kept)})
+    out["fast"].append(BUSY.add(
+        {"shape": [MESH_B, MESH_PAD, cap], "rows": "N-free", "ms": ms,
+         "plain_ms": plain_ms, "max_abs_err": 0,
+         **_grid_bound(seqs, lens, P, cap, kept)},
+        "ops.seeding:batch_seed_anchors_fast", args, 10,
+        "ops.seeding:fast_launches"))
     dir_sh, hs_sh, xb, sh_cap = MS.shard_index_by_xval(idx, MESH_SHARDS)
     tot_a = torch.zeros_like(full[0])
     tot_k = torch.zeros(full[1].shape, dtype=torch.int32, device="cuda")
@@ -1513,14 +1544,11 @@ def check_banded(g_fa, r_fa, threads):
         same = np.array_equal(scores[W], want)
         err = _max_abs_err([scores[W]], [want])
         ms = time_ms(lambda: AP.banded_align(a, bpad, nm, W), 5)
-        dev_ms = device_ms(lambda: AP.banded_align(a, bpad, nm, W), 5,
-                           lambda: AP.launches)
         cells = band_cells(packed[2], W)
         log(f"banded alignment check (B, L, KW) = {(len(qry), a.shape[1], 2 * W)}: "
             f"band cells {cells}, scores {int(want.min())}-{int(want.max())}, "
             f"equal to the plain version {same}, max_abs_err {err}; kernel "
-            f"{ms:.4f} ms (card busy {_ms(dev_ms)} ms), plain {plain_ms:.4f} "
-            f"ms")
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
         if not same:
             raise AssertionError(f"the banded alignment kernel disagrees with "
                                  f"the plain version at W = {W}")
@@ -1528,11 +1556,13 @@ def check_banded(g_fa, r_fa, threads):
         # operations a band cell (substitution compare and select, diagonal
         # and vertical candidates and their max, the gap chain's max, the
         # end-cell checks)
-        results.append({"shape": [len(qry), a.shape[1], 2 * W], "ms": ms,
-                        "device_ms": dev_ms,
-                        "plain_ms": plain_ms, "max_abs_err": err,
-                        **bound(sum(x.nbytes for x in packed) + 4 * len(qry),
-                                10 * cells)})
+        results.append(BUSY.add(
+            {"shape": [len(qry), a.shape[1], 2 * W], "ms": ms,
+             "plain_ms": plain_ms, "max_abs_err": err,
+             **bound(sum(x.nbytes for x in packed) + 4 * len(qry),
+                     10 * cells)},
+            "ops.align_pallas:banded_align", (a, bpad, nm, W), 5,
+            "ops.align_pallas:launches"))
         del a, bpad, nm
     # the wide branch: the first BANDED_WIDE_PAIRS regions cut to 1,000
     # bases at W 16,385 (past the register design's 16,384), and four of
@@ -1550,24 +1580,24 @@ def check_banded(g_fa, r_fa, threads):
         same = np.array_equal(got, want)
         err = _max_abs_err([got], [want])
         ms = time_ms(lambda: AP.banded_align(a, bpad, nm, W), 3)
-        dev_ms = (device_ms(lambda: AP.banded_align(a, bpad, nm, W), 3,
-                            lambda: AP.launches)
-                  if W == BANDED_WIDE_W else None)
         cells = band_cells(packed[2], W)
         log(f"banded alignment check (B, L, KW) = {(k, a.shape[1], 2 * W)}, "
             f"wide branch: band cells "
             f"{cells}, scores {int(want.min())}-{int(want.max())}, equal to "
             f"the plain version {same}, max_abs_err {err}; kernel {ms:.4f} "
-            f"ms (card busy {_ms(dev_ms)} ms), plain {plain_ms:.4f} ms")
+            f"ms, plain {plain_ms:.4f} ms")
         if not same:
             raise AssertionError(f"the banded alignment kernel disagrees with "
                                  f"the plain version at W = {W}, L = "
                                  f"{a.shape[1]}")
         results.append({"shape": [k, a.shape[1], 2 * W], "ms": ms,
-                        "device_ms": dev_ms, "plain_ms": plain_ms,
+                        "device_ms": None, "plain_ms": plain_ms,
                         "max_abs_err": err,
                         **bound(sum(x.nbytes for x in packed) + 4 * k,
                                 10 * cells)})
+        if W == BANDED_WIDE_W:
+            BUSY.add(results[-1], "ops.align_pallas:banded_align",
+                     (a, bpad, nm, W), 3, "ops.align_pallas:launches")
         del a, bpad, nm, packed
     t0 = time.time()
     host = np.array([banded_align_cigar_fast(q, r, W=ALN_BAND)[0]
@@ -1707,9 +1737,6 @@ def check_gap(genome, rng):
             g, kern[0][i, : kern[2][i]].view(np.uint64)))
         for i, g in enumerate(got))
     ms = time_ms(lambda: GD.gap_anchors(*args, g_max, r_max, cap, m_out), 20)
-    dev_ms = device_ms(
-        lambda: GD.gap_anchors(*args, g_max, r_max, cap, m_out), 20,
-        lambda: GD.launches)
     n_ovf = sum(x is None for x in got)
     n_cap = int((want[3] & (want[2] <= m_out) & ~too_long).sum())
     t0 = time.time()
@@ -1725,8 +1752,8 @@ def check_gap(genome, rng):
         f"kernel equal to the plain version {same}, max_abs_err {err}; the "
         f"entry point's items equal to the kernel's {entry_same}; the first "
         f"{len(checked)} items without overflow equal to the host oracle "
-        f"{oracle_same} ({time.time() - t0:.2f} s); kernel {ms:.4f} ms "
-        f"(card busy {_ms(dev_ms)} ms), plain {plain_ms:.4f} ms")
+        f"{oracle_same} ({time.time() - t0:.2f} s); kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms")
     if not (same and entry_same):
         raise AssertionError("the gap anchor kernel disagrees with the plain "
                              "version")
@@ -1741,13 +1768,14 @@ def check_gap(genome, rng):
     # over the samples (log2 g_max steps), ~20 a capped pair
     # (g_hs_set_anchor, the bounds, the emission key)
     steps = 2 * int(np.log2(g_max))
-    result = {"shape": [len(items), g_max, r_max, cap, m_out], "ms": ms,
-              "device_ms": dev_ms, "plain_ms": plain_ms, "max_abs_err": err,
-              "overflow_items": n_ovf,
-              **bound(sum(x.nbytes for x in packed) + 16 * kept
-                      + 5 * len(items),
-                      36 * (samples + positions) + 3 * steps * positions
-                      + 20 * cand)}
+    result = BUSY.add(
+        {"shape": [len(items), g_max, r_max, cap, m_out], "ms": ms,
+         "plain_ms": plain_ms, "max_abs_err": err, "overflow_items": n_ovf,
+         **bound(sum(x.nbytes for x in packed) + 16 * kept + 5 * len(items),
+                 36 * (samples + positions) + 3 * steps * positions
+                 + 20 * cand)},
+        "ops.gap_dev:gap_anchors", (*args, g_max, r_max, cap, m_out), 20,
+        "ops.gap_dev:launches")
     del args
     torch.cuda.empty_cache()
     return result, launches
@@ -1798,30 +1826,31 @@ def check_gap_edges(genome, rng) -> list:
         err = _max_abs_err(got_d, want_d)
         ms = time_ms(lambda: GD.gap_anchors(*args, g_max, r_max, cap, m_out),
                      10)
-        dev_ms = (device_ms(
-            lambda: GD.gap_anchors(*args, g_max, r_max, cap, m_out), 10,
-            lambda: GD.launches) if near else None)
         samples, positions, cand = gap_work(packed, g_max, cap)
         kept = int(np.minimum(want[2], m_out).sum())
         tag = "windows near 2^30" if near else "past the shared tables"
         log(f"gap anchors check (B, g_max, r_max) = "
             f"{(len(items), g_max, r_max)}, {tag}: kept anchors "
             f"{int(want[2].sum())}, overflow items {int(want[3].sum())}, "
-            f"equal {same}, max_abs_err {err}; kernel {ms:.4f} ms (card busy "
-            f"{_ms(dev_ms)} ms), plain {plain_ms:.4f} ms")
+            f"equal {same}, max_abs_err {err}; kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms")
         if not same or not kept:
             raise AssertionError(f"the gap anchor kernel disagrees with the "
                                  f"plain version ({tag}, g_max {g_max}, "
                                  f"r_max {r_max})")
         steps = 2 * int(np.ceil(np.log2(g_max)))
         out.append({"shape": [len(items), g_max, r_max, cap, m_out],
-                    "rows": tag, "ms": ms, "device_ms": dev_ms,
+                    "rows": tag, "ms": ms, "device_ms": None,
                     "plain_ms": plain_ms,
                     "max_abs_err": err,
                     **bound(sum(x.nbytes for x in packed) + 16 * kept
                             + 5 * len(items),
                             36 * (samples + positions) + 3 * steps * positions
                             + 20 * cand)})
+        if near:
+            BUSY.add(out[-1], "ops.gap_dev:gap_anchors",
+                     (*args, g_max, r_max, cap, m_out), 10,
+                     "ops.gap_dev:launches")
         del args
     torch.cuda.empty_cache()
     return out
@@ -2037,24 +2066,97 @@ def other_configurations(d, g_fa, r_fa, threads, sam_b1: str) -> dict:
     return out
 
 
+def tool(name: str, *args: str) -> str:
+    """`python -m linear_tpu_torch.tools.<name> *args` on the card: its last
+    line of stdout (raises when it exits non-zero)."""
+    res = subprocess.run([sys.executable, "-m",
+                          f"linear_tpu_torch.tools.{name}", *args],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=900)
+    if res.returncode:
+        raise AssertionError(f"tools.{name} exited {res.returncode}: "
+                             + res.stderr[-3000:])
+    return res.stdout.strip().splitlines()[-1]
+
+
+def surface_phase(g_fa, r_fa, threads) -> dict:
+    """Phase 12: Mapper.warmup on the card (its time and the launches it
+    makes), Mapper._device_seed_block on the first BLOCK_READS corpus reads
+    against the --device cpu Mapper's (the plain version), every entry
+    equal and None at the same reads, with its launches counted on this run;
+    then the tools profile_stages (1024 reads, --json) and bench_devbuild
+    (46.7 Mb, the device build equal to the host build) in processes of
+    their own."""
+    from linear_tpu_torch.map.mapper import Mapper, MapperConfig
+    from linear_tpu_torch.ops import chain_dp as CD
+    from linear_tpu_torch.ops import seeding as SD
+    from linear_tpu_torch.utils import seqio
+
+    m = Mapper([g_fa], MapperConfig(threads=threads), device="cuda")
+    m.prepare()
+    seed0, chain0 = SD.launches, CD.launches
+    t0 = time.time()
+    m.warmup()
+    out = {"warmup_s": time.time() - t0,
+           "warmup_launches": {"seed_superchunk": SD.launches - seed0,
+                               "chain_dp_windowed": CD.launches - chain0}}
+    log(f"Mapper.warmup() on the card: {out['warmup_s']:.3f} s (index "
+        f"{m.dev_index_source} in {m.dev_index_seconds:.3f} s), kernel "
+        f"launches {out['warmup_launches']}")
+    if not all(out["warmup_launches"].values()):
+        raise AssertionError("warmup did not launch every kernel of its path")
+    block = next(seqio.read_blocks(r_fa))
+    sub = seqio.SeqSet(ids=block.ids[:BLOCK_READS],
+                       seqs=block.seqs[:BLOCK_READS])
+    plain = Mapper([g_fa], MapperConfig(threads=threads), device="cpu")
+    plain.f2, plain.index = m.f2, m.index
+    want = plain._device_seed_block(sub)
+    SD.launches = 0
+    t0 = time.time()
+    got = m._device_seed_block(sub)
+    t_block = time.time() - t0
+    out["block_launches"] = SD.launches
+    same = ([g is None for g in got] == [w is None for w in want]
+            and all(w is None or (g.dtype == np.uint64
+                                  and np.array_equal(g, w))
+                    for g, w in zip(got, want)))
+    n_seeded = sum(g is not None for g in got)
+    log(f"Mapper._device_seed_block on {BLOCK_READS} corpus reads: seeded "
+        f"{n_seeded}, None {BLOCK_READS - n_seeded} (N bases, 200 bases or "
+        f"fewer, or over m_out {m.SEED_M_OUT}), every entry equal to the "
+        f"plain version's {same}; {t_block:.3f} s, seed kernel launches "
+        f"{out['block_launches']}")
+    if not same or not out["block_launches"] or not n_seeded:
+        raise AssertionError("block seeding on the card differs from the "
+                             "plain version, or launched no kernel")
+    del m, plain
+    t0 = time.time()
+    line = tool("profile_stages", "1024", "--json")
+    out["profile_stages"] = json.loads(line)
+    log(f"profile_stages ({time.time() - t0:.1f} s): {line}")
+    t0 = time.time()
+    line = tool("bench_devbuild", "46.7", "--json")
+    out["bench_devbuild"] = json.loads(line)
+    log(f"bench_devbuild ({time.time() - t0:.1f} s): {line}")
+    if out["bench_devbuild"].get("device_equal_host") is not True:
+        raise AssertionError("the device DIndex build at 46.7 Mb differs "
+                             "from the host build")
+    return out
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    try:
-        from linear_tpu_torch import native
-        from linear_tpu_torch.index import dindex as DI
-        from linear_tpu_torch.ops import _cuda
-        from linear_tpu_torch.ops import seeding as SD
-    except ImportError as e:
-        print(f"chip_smoke: linear_tpu_torch is not importable: {e}",
-              file=sys.stderr)
-        return 1
+    from linear_tpu_torch import native
+    from linear_tpu_torch.index import dindex as DI
+    from linear_tpu_torch.ops import _cuda
+    from linear_tpu_torch.ops import seeding as SD
 
     t_start = time.time()
-    smi = nvidia_smi()
+    smi = common.nvidia_smi()
     log(f"card: {smi}")
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
@@ -2071,7 +2173,7 @@ def main() -> int:
     d = os.path.join(native.BUILD_DIR, "smoke")
     os.makedirs(d, exist_ok=True)
     t0 = time.time()
-    genome, g_fa, r_fa = make_corpus(d)
+    genome, g_fa, r_fa = common.make_corpus(d)
     g_nf, gnf_fa = make_nfree(d, genome)
     log(f"corpus: genome {len(genome)} b ({int((genome == 4).sum())} N), "
         f"{N_READS} reads: {time.time() - t0:.2f} s")
@@ -2185,6 +2287,17 @@ def main() -> int:
     other_configurations(d, g_fa, r_fa, threads, sam_cuda)
     log(f"phase 11: {time.time() - t11:.2f} s")
 
+    # phase 12: warmup, block seeding, profile_stages, bench_devbuild
+    t12 = time.time()
+    surface = surface_phase(g_fa, r_fa, threads)
+    log(f"phase 12: {time.time() - t12:.2f} s")
+
+    # the card's busy time of every kernel call queued above, in a fresh
+    # process
+    t0 = time.time()
+    BUSY.measure(d)
+    log(f"busy times: {time.time() - t0:.2f} s")
+
     def entry(name, source, replaces, launches, checks, main, **extra):
         return {"name": name, "route": "cuda",
                 "source": f"linear_tpu_torch/ops/csrc/{source}",
@@ -2192,20 +2305,22 @@ def main() -> int:
                 "max_abs_err": max(c["max_abs_err"] for c in checks),
                 "ms": main["ms"], "plain_ms": main["plain_ms"],
                 "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-                "library_ms": main.get("library_ms"), **extra}
+                "library_ms": main.get("library_ms"),
+                "device_ms": main.get("device_ms"), **extra}
 
     log(f"smoke: {time.time() - t_start:.1f} s from the card's query to here")
     print(json.dumps({"kernels": [
         entry("seed_superchunk", "seed_superchunk.cu",
               "linear_tpu/ops/seeding.py:443", st_cuda["launches"], checks,
-              checks[0], shapes=checks, device_ms=checks[0]["device_ms"]),
+              checks[0], shapes=checks,
+              warmup_launches=surface["warmup_launches"]["seed_superchunk"],
+              block_launches=surface["block_launches"]),
         entry("filter_extend", "filter_extend.cu",
               "linear_tpu/ops/extend_dev.py:537", st_b0["ext_launches"],
               ext_checks, ext_checks[0], shapes=ext_checks),
         entry("devbuild", "devbuild.cu", "linear_tpu/ops/devbuild.py:44",
               st_nf["build_launches"], [db_check], db_check,
-              build_s=db_check["build_s"], upload_s=db_check["upload_s"],
-              device_ms=db_check["device_ms"]),
+              build_s=db_check["build_s"], upload_s=db_check["upload_s"]),
         entry("chain_dp_windowed", "chain_dp.cu",
               "linear_tpu/ops/chain_dp.py:137", py["py_b1"]["chain_launches"],
               chain_checks, chain_checks[1], shapes=chain_checks),
@@ -2218,25 +2333,20 @@ def main() -> int:
         entry("compact_anchors", "seed_anchors.cu",
               "linear_tpu/ops/seeding.py:420", seeding["compact_launches"],
               seeding["compact"], seeding["compact"][-1],
-              shapes=seeding["compact"],
-              device_ms=seeding["compact"][-1]["device_ms"]),
+              shapes=seeding["compact"]),
         entry("sort_anchors", "sort_anchors.cu",
               "linear_tpu/parallel/mesh.py:44", mesh["sort_launches"],
               seeding["sort"], seeding["sort"][0], shapes=seeding["sort"],
-              path="mesh mapping step",
-              device_ms=seeding["sort"][0]["device_ms"]),
+              path="mesh mapping step"),
         entry("chain_dp_full", "chain_dp.cu",
               "linear_tpu/ops/chain_dp.py:86", full_launches, full_checks,
-              full_checks[1], shapes=full_checks, path=ENTRY_ONLY,
-              device_ms=full_checks[1]["device_ms"]),
+              full_checks[1], shapes=full_checks, path=ENTRY_ONLY),
         entry("banded_align", "banded_align.cu",
               "linear_tpu/ops/align_pallas.py:142", banded_launches, banded,
-              banded[0], shapes=banded, path=ENTRY_ONLY,
-              device_ms=banded[0]["device_ms"]),
+              banded[0], shapes=banded, path=ENTRY_ONLY),
         entry("gap_anchors", "gap_anchors.cu", "linear_tpu/ops/gap_dev.py:76",
               gap_launches, [gap] + gap_edges, gap,
-              shapes=[gap] + gap_edges, path=ENTRY_ONLY,
-              device_ms=gap["device_ms"]),
+              shapes=[gap] + gap_edges, path=ENTRY_ONLY),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -53,6 +53,15 @@ class DIndex:
             self.nz = bm
         return self.nz
 
+    @property
+    def full_size(self) -> int:
+        """Entries of the dense dir table: 4^weight + 1."""
+        return (1 << (2 * self.weight)) + 1
+
+    def query(self, xval: int) -> np.ndarray:
+        """The cords of bucket xval, in table order."""
+        return self.hs[self.dir[xval]: self.dir[xval + 1]]
+
 
 def thread_blocks(seq_len: int, span: int, threads: int) -> List[tuple]:
     """The reference's per-genome OpenMP block decomposition

@@ -3,6 +3,10 @@ or side by side in several.
 
     python -m linear_tpu_torch.kernel_times
     python linear_tpu_torch/kernel_times.py --roots A B C --out times.json
+    python -m linear_tpu_torch.kernel_times --busy jobs.pt
+
+--busy times the calls that chip_smoke.py queued in a file (see busy()) in
+this fresh process and prints their busy times as one JSON line.
 
 A root is a checkout (a directory that holds linear_tpu_torch/). With
 --roots the kernels of every root are built at once, one process each, and
@@ -422,6 +426,66 @@ def run_here(seed: int, iters: int, words=None) -> dict:
     return res
 
 
+def busy(path: str, windows: int = 3) -> list:
+    """The card's busy time a call of each job in the file `path`
+    (torch.save of (entry point "module:name", args, kwargs, iters, launch
+    counter "module:name") tuples, chip_smoke.py's queue), in this fresh
+    process: device_ms over iters calls, the inputs moved to the card, each
+    tensor once. A window in which the profiler traced no device event is
+    traced again, windows times at most, and then the job's time is None.
+    Returns per job {"device_ms", "windows": [{"events", "launches"}]}, the
+    traced count of each device event beside the kernel launches the window
+    made by the entry point's counter."""
+    import dataclasses
+    import importlib
+
+    import torch
+
+    from linear_tpu_torch.ops import _cuda
+
+    _cuda.lib()
+    on_card = {}
+
+    def cuda(obj):
+        if isinstance(obj, torch.Tensor):
+            if id(obj) not in on_card:
+                on_card[id(obj)] = (obj, obj.cuda())
+            return on_card[id(obj)][1]
+        if isinstance(obj, (list, tuple)):
+            return type(obj)(cuda(o) for o in obj)
+        if isinstance(obj, dict):
+            return {k: cuda(v) for k, v in obj.items()}
+        if dataclasses.is_dataclass(obj):
+            return dataclasses.replace(obj, **{
+                f.name: cuda(getattr(obj, f.name))
+                for f in dataclasses.fields(obj)})
+        return obj
+
+    def attr(path):
+        mod, name = path.split(":")
+        return importlib.import_module(mod), name
+
+    out = []
+    for fn_path, args, kw, iters, counter in torch.load(path,
+                                                        weights_only=False):
+        mod, name = attr(fn_path)
+        fn = getattr(mod, name)
+        cmod, cname = attr(counter)
+        a, k = cuda(args), cuda(kw)
+        res = {"device_ms": None, "windows": []}
+        for _ in range(windows):
+            counts = {}
+            before = getattr(cmod, cname)
+            ms = device_ms(lambda: fn(*a, **k), iters, counts=counts)
+            res["windows"].append({"events": counts, "launches": (
+                getattr(cmod, cname) - before) * iters // (iters + 1)})
+            if counts:
+                res["device_ms"] = ms
+                break
+        out.append(res)
+    return out
+
+
 def _child(root: str, argv: list) -> subprocess.Popen:
     env = dict(os.environ, PYTHONPATH=root)
     return subprocess.Popen([sys.executable, os.path.abspath(__file__), *argv],
@@ -438,7 +502,13 @@ def main(argv=None) -> int:
     ap.add_argument("--cases", nargs="*", default=None,
                     help="time only the cases whose name holds one of these")
     ap.add_argument("--build-only", action="store_true")
+    ap.add_argument("--busy", default=None, metavar="JOBS",
+                    help="the busy time of each call queued in this file "
+                         "(chip_smoke.py): one JSON line")
     args = ap.parse_args(argv)
+    if args.busy:
+        print(json.dumps(busy(args.busy)))
+        return 0
     if args.build_only:
         from linear_tpu_torch.ops import _cuda
 

@@ -296,6 +296,79 @@ class Mapper:
             self._dev_index = index
         return self._dev_index
 
+    def _device_seed_block(self, reads: seqio.SeqSet) -> List:
+        """Block seeding of a whole read block
+        (linear_tpu/map/mapper.py:108-177): one entry a read, the device's
+        anchors in emission order as uint64 arrays, or None for a read the
+        device does not seed (200 bases or fewer, longer than
+        MAX_SEED_READ_LEN, N bases, or a probe past SEED_M_OUT: no tier 2
+        here), which the caller seeds on the host."""
+        return self._device_seed_finish(reads,
+                                        self._device_seed_dispatch(reads))
+
+    def _device_seed_dispatch(self, reads: seqio.SeqSet):
+        """The dispatch half of _device_seed_block: every superchunk of the
+        eligible reads enqueued (SD.seed_block_dispatch) at the pad of the
+        longest, a power of two of 1024 or more, with no wait. Returns
+        (eligible read indices, dispatched superchunks or None)."""
+        from ..ops import seeding as SD
+
+        index = self._ensure_dev_index()
+        eligible = [i for i, r in enumerate(reads.seqs)
+                    if THD_MIN_READ_LEN < len(r) <= MAX_SEED_READ_LEN]
+        if not eligible:
+            return eligible, None
+        pad = 1 << max(int(np.ceil(np.log2(max(
+            len(reads.seqs[i]) for i in eligible)))), 10)
+        return eligible, SD.seed_block_dispatch(
+            [reads.seqs[i] for i in eligible], index, pad_len=pad,
+            m_out=self.SEED_M_OUT, superchunk=self.SEED_SUPERCHUNK)
+
+    def _device_seed_finish(self, reads: seqio.SeqSet, disp) -> List:
+        """The wait half of _device_seed_block: per-read anchors."""
+        from ..ops import seeding as SD
+
+        eligible, block = disp
+        out: List = [None] * len(reads.seqs)
+        if block is not None:
+            for i, a in zip(eligible, SD.seed_block_collect(
+                    block, m_out=self.SEED_M_OUT)):
+                out[i] = a
+        return out
+
+    def warmup(self, pad: int = 8192,
+               n_buckets=(64, 128, 256, 512, 1024)) -> None:
+        """Launch every kernel of the seeding paths once at the shapes they
+        run (linear_tpu/map/mapper.py:439-467), so that no first launch
+        falls inside a timed run: the device index (and on cuda the kernel
+        library and the CUDA context), block seeding at (SEED_SUPERCHUNK,
+        pad, SEED_M_OUT), the tier-2 wire at (SEED_SUPERCHUNK2, pad,
+        SEED_M_OUT2), and the windowed chain DP at (DEV_BATCH, n) for each
+        bucket n. Raises where _ensure_dev_index does (no device work, no
+        card) and when a launch fails; on cpu the plain versions run."""
+        import torch
+
+        from ..ops import chain_dp as CDP
+        from ..ops import seeding as SD
+
+        index = self._ensure_dev_index()
+        reads = [np.zeros(pad, dtype=np.uint8)] * self.SEED_SUPERCHUNK
+        SD.seed_block_collect(SD.seed_block_dispatch(
+            reads, index, pad_len=pad, m_out=self.SEED_M_OUT,
+            superchunk=self.SEED_SUPERCHUNK), m_out=self.SEED_M_OUT)
+        w2, n_mask2 = SD.pack_superchunk(reads[: self.SEED_SUPERCHUNK2], pad,
+                                         self.SEED_SUPERCHUNK2)
+        SD.collect_wire(SD.dispatch_wire(w2, index, self.SEED_M_OUT2),
+                        self.SEED_SUPERCHUNK2, n_mask2, self.SEED_M_OUT2)
+        cnt = torch.zeros((self.DEV_BATCH,), dtype=torch.int32,
+                          device=self.device)
+        for n in n_buckets:
+            CDP.chain_dp_windowed(
+                torch.zeros((self.DEV_BATCH, n), dtype=torch.int64,
+                            device=self.device), cnt, W=self.CHAIN_W)
+        if self.device == "cuda":
+            torch.cuda.synchronize()
+
     def _device_seed_stream2(self, chunks):
         """Device seeding with m_out tiering, chunk by chunk. `chunks`
         yields (i0, seqs): consecutive reads of a block, seqs[0] being read
@@ -501,13 +574,13 @@ class Mapper:
                      chain_pre=None, tid: int = 0):
         """The Python engine's apx phase of one read as a generator of
         window-sweep requests (pmpfinder.run_serial / run_lockstep); returns
-        (cords_str, cords_end, rc, f1). The gap phase is not
+        (cords_str, cords_end, cords_info, rc, f1). The gap phase is not
         part of it: it mutates the thread's GapParms, so it runs in read
         order (gap_phase). The thread's PMPParms start in ctor state and
         stay in toggle(0) state once a read on the thread took the re-apx
         path (PMPParms.did_toggle)."""
         if len(read) <= THD_MIN_READ_LEN:
-            return [], [], None, None
+            return [], [], [], None, None
         rc = seqio.revcomp(read)
         if self.cfg.feature_t != 2:
             st = self._f1_bufs.setdefault(tid, [PMP.FeatBuf(), PMP.FeatBuf()])
@@ -524,12 +597,24 @@ class Mapper:
                           cah_stop_ratio=self.cfg.cah_stop_ratio)
         if self._pmp_toggled.get(tid):
             pm.toggle(0)
-        cords_str, cords_end, _, _ = yield from PMP.apx_map(
+        cords_str, cords_end, _, cords_info = yield from PMP.apx_map(
             self.index, read, f1, self.f2, f_chain=self.cfg.apx_chain_flag,
             pm=pm)
         if pm.did_toggle:
             self._pmp_toggled[tid] = True
-        return cords_str, cords_end, rc, f1
+        return cords_str, cords_end, cords_info, rc, f1
+
+    def map_read(self, read: np.ndarray, seed_anchors=None, chain_pre=None,
+                 tid: int = 0):
+        """One read through the Python engine (linear_tpu/map/mapper.py:
+        577-584): the apx phase, then the gap phase on thread tid's
+        GapParms, which carry state from read to read, so reads go in
+        order. Returns (cords_str, cords_end, cords_info)."""
+        cords_str, cords_end, cords_info, rc, f1 = PMP.run_serial(
+            self.map_read_gen(read, seed_anchors=seed_anchors,
+                              chain_pre=chain_pre, tid=tid))
+        self.gap_phase(read, rc, cords_str, cords_end, f1, tid=tid)
+        return cords_str, cords_end, cords_info
 
     def gap_phase(self, read, rc, cords_str, cords_end, f1,
                   tid: int = 0) -> None:
@@ -586,8 +671,8 @@ class Mapper:
         else:
             mapped = [PMP.run_serial(g) for g in gens]
         out = []
-        for read, rid, tid, (cs, ce, rc, f1) in zip(reads, rids, tids,
-                                                     mapped):
+        for read, rid, tid, (cs, ce, _, rc, f1) in zip(reads, rids, tids,
+                                                        mapped):
             self.gap_phase(read, rc, cs, ce, f1, tid=tid)
             out.append((cs, ce, *self.read_output(read, rid, cs, ce,
                                                   collect_bam)))

@@ -124,6 +124,8 @@ def engine_lib():
             lib.le_index_fetch_nz.argtypes = [C.c_void_p, C.c_void_p]
             lib.le_index_free.restype = None
             lib.le_index_free.argtypes = [C.c_void_p]
+            lib.le_stage_ns.restype = None
+            lib.le_stage_ns.argtypes = [C.c_void_p, C.POINTER(C.c_int64)]
             lib.le_pack_superchunk.restype = None
             lib.le_pack_superchunk.argtypes = [
                 C.POINTER(C.c_void_p), C.POINTER(C.c_int64), C.c_int64,
@@ -325,6 +327,13 @@ class NativeEngine:
     def reset(self) -> None:
         """Fresh per-task GapParms (reference: per-compute-task state)."""
         self._lib.le_reset(self._h)
+
+    def stage_ns(self) -> List[int]:
+        """Wall ns the engine spent in its features, apx, gap and output
+        phases since the last call (the counters restart at 0)."""
+        buf = (C.c_int64 * 4)()
+        self._lib.le_stage_ns(self._h, buf)
+        return list(buf)
 
     def map_read(self, read: np.ndarray, rid: str,
                  seeds: Optional[np.ndarray] = None, tid: int = 0):

@@ -31,7 +31,11 @@ Only those are defined; probed > m_out means the row overflowed.
 (csrc/seed_superchunk.cu) for CUDA tensors and runs
 `seed_superchunk_reference`, the plain PyTorch version, for CPU tensors.
 `superchunk_states_from_words` states the kernel's word arithmetic (funnel
-shifts, 2-bit reversal, popcounts) plainly for the tests.
+shifts, 2-bit reversal, popcounts) plainly for the tests. dispatch_wire /
+collect_wire move one superchunk (the streaming path of
+Mapper._device_seed_stream2, which tells an overflow apart for its second
+tier); seed_block_dispatch / seed_block_collect a whole block, every wire
+dispatched before the first wait (Mapper._device_seed_block, warmup).
 
 The padded seeding kernels of the multi-process path (the second half of
 this module) keep every probed bucket slot: (B, P, cap) anchors and a keep
@@ -399,6 +403,17 @@ def dispatch_wire(wire: np.ndarray, index: DeviceIndex,
     return WireHandle(out, done, host)
 
 
+def _landed(handle: WireHandle):
+    """Wait for one dispatch_wire handle: (anchors (rows, m_out) uint64,
+    count, probed) in host memory."""
+    if handle.done is not None:
+        handle.done.synchronize()
+    arr = handle.out.numpy()
+    return (arr[:, :-1].view(np.uint64),
+            (arr[:, -1] & 0xFFFFFFFF).astype(np.int64),
+            (arr[:, -1] >> 32).astype(np.int64))
+
+
 def collect_wire(handle: WireHandle, n_valid: int, n_mask: np.ndarray,
                  m_out: int):
     """Wait for one dispatch_wire handle. Returns (anchors, overflow):
@@ -406,12 +421,7 @@ def collect_wire(handle: WireHandle, n_valid: int, n_mask: np.ndarray,
     N AND for overflowed ones; overflow marks the reads whose probe
     exceeded m_out, so callers can redispatch them at a larger m_out tier
     instead of seeding them on the host."""
-    if handle.done is not None:
-        handle.done.synchronize()
-    arr = handle.out.numpy()
-    anc = arr[:, :-1].view(np.uint64)
-    count = (arr[:, -1] & 0xFFFFFFFF).astype(np.int64)
-    probed = (arr[:, -1] >> 32).astype(np.int64)
+    anc, count, probed = _landed(handle)
     res: list = []
     overflow = np.zeros(n_valid, dtype=bool)
     for i in range(n_valid):
@@ -423,6 +433,40 @@ def collect_wire(handle: WireHandle, n_valid: int, n_mask: np.ndarray,
         else:
             res.append(anc[i, : count[i]].copy())
     return res, overflow
+
+
+def seed_block_dispatch(reads: list, index: DeviceIndex, pad_len: int,
+                        thd_alpha: int = THD_ALPHA, m_out: int = 128,
+                        superchunk: int = 1024) -> list:
+    """Block seeding (linear_tpu.ops.seeding.seed_block_dispatch): every
+    `superchunk` reads are packed into one wire, then each wire is
+    dispatched (dispatch_wire), all before any result is waited for.
+    Reads with N ride the wire zeroed and come back None. Collect with
+    seed_block_collect. The kernel samples every THD_ALPHA bases, so
+    another thd_alpha raises."""
+    if thd_alpha != THD_ALPHA:
+        raise ValueError(f"thd_alpha {thd_alpha}: the seed kernel samples "
+                         f"every {THD_ALPHA} bases")
+    wires = [(min(superchunk, len(reads) - c0),
+              *pack_superchunk(reads[c0: c0 + superchunk], pad_len,
+                               superchunk))
+             for c0 in range(0, len(reads), superchunk)]
+    return [(n_valid, dispatch_wire(w, index, m_out), n_mask)
+            for n_valid, w, n_mask in wires]
+
+
+def seed_block_collect(dispatched: list, m_out: int = 128) -> list:
+    """The anchors of seed_block_dispatch's reads, one entry a read in
+    order: uint64 arrays in emission order, None for a read with N and for
+    a read whose probe exceeded m_out (the caller seeds those on the host;
+    unlike collect_wire, the overflow is not told apart)."""
+    res: list = []
+    for n_valid, handle, n_mask in dispatched:
+        anc, count, probed = _landed(handle)
+        for i in range(n_valid):
+            res.append(None if n_mask[i] or probed[i] > m_out
+                       else anc[i, : count[i]].copy())
+    return res
 
 
 # ------------------------------------ padded seeding of the multi-process path

@@ -31,6 +31,7 @@ from __future__ import annotations
 import multiprocessing as mp
 import os
 import queue
+import sys
 import threading
 import time
 from dataclasses import dataclass, field
@@ -113,11 +114,20 @@ class BlockResult:
 class PipeCounters:
     """Counts of one PipelineMapper.run, which the CLI prints at the end of
     a run: reads fetched (stage F) and, with device seeding, what the
-    device did with them."""
+    device did with them; and the live dashboard of the run, the
+    counterpart of the reference's P_Tasks::printRunningInfos
+    (src/parallel_io.cpp:69-97) and of linear_tpu's PipeCounters: reads
+    fetched, seeded on the device, through the worker residual (stage C)
+    and drained in order (stage P), each with its rate, redrawn on stderr
+    every `interval` seconds by a thread between start() and stop().
+    LINEAR_TPU_DASH=1 turns it on, =0 off; unset, it is on when stderr is
+    a terminal. Each count has one writer thread."""
 
     t0: float = field(default_factory=time.time)
     fetched: int = 0          # reads read from disk
     seeded: int = 0           # reads whose device seeds landed
+    computed: int = 0         # reads through the worker residual
+    emitted: int = 0          # reads drained in order
     shipped_seeded: int = 0   # reads handed to the pool with device seeds
     # m_out -> superchunks the device seeded at that tier, and the reads
     # whose device seeding ended there (the base tier leaves out the reads
@@ -132,6 +142,49 @@ class PipeCounters:
     # run landed (None: none did)
     seed_first_s: Optional[float] = None
     seed_last_s: Optional[float] = None
+    enabled: Optional[bool] = None  # the dashboard; None: LINEAR_TPU_DASH
+    interval: float = 0.5
+    _stop: threading.Event = field(default_factory=threading.Event,
+                                   repr=False)
+    _th: Optional[threading.Thread] = field(default=None, repr=False)
+    _last_lines: int = field(default=0, repr=False)
+
+    def __post_init__(self):
+        if self.enabled is None:
+            env = os.environ.get("LINEAR_TPU_DASH")
+            self.enabled = (env != "0" if env is not None
+                            else sys.stderr.isatty())
+
+    def start(self) -> "PipeCounters":
+        """Start the dashboard thread, when enabled."""
+        if self.enabled:
+            self._th = threading.Thread(target=self._loop, daemon=True)
+            self._th.start()
+        return self
+
+    def stop(self) -> None:
+        """Stop the dashboard thread and draw the final counts."""
+        self._stop.set()
+        if self._th is not None:
+            self._th.join()
+            self._th = None
+            self._render(final=True)
+
+    def _loop(self) -> None:
+        while not self._stop.is_set():
+            self._render()
+            self._stop.wait(self.interval)
+
+    def _render(self, final: bool = False) -> None:
+        el = max(time.time() - self.t0, 1e-9)
+        up = f"\x1b[{self._last_lines}A" if self._last_lines else ""
+        rows = [("I/O::in", self.fetched), ("Seeded", self.seeded),
+                ("Compute", self.computed), ("Processed", self.emitted)]
+        sys.stderr.write(up + "".join(
+            f"\x1b[2K  {name}:\t{cnt}\ttime:{el:.2f}[s]\t"
+            f"speed:{cnt / el:.2f}[reads/s]\n" for name, cnt in rows))
+        sys.stderr.flush()
+        self._last_lines = 0 if final else len(rows)
 
     def add_superchunk(self, m_out: int, base_tier: bool, idxs,
                        anchors) -> None:
@@ -337,10 +390,14 @@ class PipelineMapper:
 
         th = threading.Thread(target=feeder, daemon=True)
         th.start()
-        yield from self._drain(q, pool, END_BLOCK)
+        c.start()
+        try:
+            yield from self._drain(q, pool, END_BLOCK, c)
+        finally:
+            c.stop()
         th.join()
 
-    def _drain(self, q, pool, END_BLOCK):
+    def _drain(self, q, pool, END_BLOCK, c: PipeCounters):
         pending: List = []  # AsyncResults of the current block, in order
         while True:
             item = q.get()
@@ -358,10 +415,16 @@ class PipelineMapper:
                     coll.join()
                     if coll.error is not None:
                         raise coll.error
+                c.emitted += n_reads
                 yield BlockResult(block, [r[0] for r in results],
                                   [r[1] for r in results],
                                   "".join(r[2] for r in results),
                                   [ln for r in results for ln in r[3]],
                                   n_reads=n_reads)
                 continue
-            pending.append(pool.apply_async(_map_chunk, (item,)))
+            p0 = item[0]
+            n_task = (p0[4] if isinstance(p0, tuple) and p0
+                      and p0[0] == "range" else len(p0))
+            pending.append(pool.apply_async(
+                _map_chunk, (item,), callback=lambda res, k=n_task: setattr(
+                    c, "computed", c.computed + k)))

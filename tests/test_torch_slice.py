@@ -366,6 +366,9 @@ def test_import_loads_no_jax():
         "need += ['linear_tpu_torch.' + m for m in\n"
         "         ('out.bam', 'index.hindex', 'index.sindex',\n"
         "          'index.serial')]\n"
+        "need += ['linear_tpu_torch.tools.' + m for m in\n"
+        "         ('common', 'profile_stages', 'profile_residual',\n"
+        "          'bench_devbuild', 'bench_scale', 'diffstage')]\n"
         "bad += [m + ' not imported' for m in need if m not in sys.modules]\n"
         "print(len(sys.modules), bad)\n"
         "sys.exit(1 if bad else 0)\n")
