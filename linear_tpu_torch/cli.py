@@ -16,7 +16,9 @@ device run first joins the torch.distributed process group that the
 environment describes (parallel.dist; a no-op without WORLD_SIZE > 1).
 The device works on the DIndex and the 2_48 features only: with -i 2/3 or
 -f 0/1 a device run maps on the host engines, as linear_tpu's does, and
-says so on stderr.
+says so on stderr. LINEAR_TPU_TRACE=<file> traces the run and writes its
+spans and counters at the end as Chrome trace-event JSON
+(parallel.pipeline.write_trace).
 """
 from __future__ import annotations
 
@@ -203,7 +205,11 @@ def run_filter(args) -> int:
         SD.launches = 0
         ED.launches = 0
         CDP.launches = 0
-    runs = []  # PipeCounters of each read file (pipeline or serial loop)
+    # (read file, PipeCounters) of each read file (pipeline or serial loop)
+    runs = []
+    from .parallel.pipeline import trace_path, write_trace
+
+    trace_file = trace_path()
 
     f_apf = args.output_type & 1
     f_sam = args.output_type & 2
@@ -267,16 +273,17 @@ def run_filter(args) -> int:
             for br in pipeline.run(rpath, collect_bam=bool(f_bam or f_pbsv),
                                    collect_cords=bool(f_apf)):
                 emit(br.block, br.cords_str, br.sam, br.bam_lines, br.n)
-            runs.append(pipeline.counters)
+            runs.append((rpath, pipeline.counters))
         else:
-            counters = PipeCounters() if seeding else None
+            counters = (PipeCounters(trace=trace_file is not None)
+                        if seeding else None)
             for block in seqio.read_blocks(rpath):
                 cs, _, sam, *bl = mapper.map_block(
                     block, counters=counters,
                     collect_bam=bool(f_bam or f_pbsv))
                 emit(block, cs, sam, bl[0] if bl else [], len(block))
             if seeding:
-                runs.append(counters)
+                runs.append((rpath, counters))
         if not shared:
             for of in (of_sam, of_apf):
                 if of:
@@ -293,11 +300,11 @@ def run_filter(args) -> int:
         pipeline.close()
     if seeding:
         def total(key):
-            return sum(getattr(c, key) for c in runs)
+            return sum(getattr(c, key) for _, c in runs)
 
         def per_tier(key):
             return ", ".join(
-                f"m_out {t}: {sum(getattr(c, key).get(t, 0) for c in runs)}"
+                f"m_out {t}: {sum(getattr(c, key).get(t, 0) for _, c in runs)}"
                 for t in (mapper.SEED_M_OUT, mapper.SEED_M_OUT2))
 
         print(f"--Device seeding ({args.device}): seeded reads "
@@ -308,7 +315,7 @@ def run_filter(args) -> int:
               f"reads ({per_tier('tier_reads')}); seeded on the host: "
               f"{total('host_n')} with N, {total('host_overflow')} "
               f"overflowing m_out {mapper.SEED_M_OUT2}", file=sys.stderr)
-        for c in runs:
+        for _, c in runs:
             if c.seed_first_s is not None:
                 print(f"--Device seeds landed from {c.seed_first_s:.3f} s to "
                       f"{c.seed_last_s:.3f} s into the read file's run",
@@ -328,6 +335,11 @@ def run_filter(args) -> int:
                   f"{ec.host_hits} over {mapper.EXT_H} hits, "
                   f"{ec.host_overflow} overflowing C, {ec.host_reapx} re-apx",
                   file=sys.stderr)
+    if trace_file:
+        write_trace(trace_file, runs)
+        print(f"--Trace written to {trace_file}: "
+              f"{sum(len(c.spans) for _, c in runs)} spans of {len(runs)} "
+              f"read file runs", file=sys.stderr)
     print(f"Time in sum[s] {time.time() - t0:.2f}", file=sys.stderr)
     return 0
 

@@ -29,6 +29,7 @@ too few or too many anchors and a window overflow) are counted by reason.
 from __future__ import annotations
 
 import time
+from contextlib import nullcontext
 from dataclasses import dataclass
 from typing import List, Optional
 
@@ -369,7 +370,7 @@ class Mapper:
         if self.device == "cuda":
             torch.cuda.synchronize()
 
-    def _device_seed_stream2(self, chunks):
+    def _device_seed_stream2(self, chunks, counters=None):
         """Device seeding with m_out tiering, chunk by chunk. `chunks`
         yields (i0, seqs): consecutive reads of a block, seqs[0] being read
         i0. For every superchunk the device seeds, this yields
@@ -380,19 +381,25 @@ class Mapper:
         SEED_M_OUT; the reads whose probe overflowed go out again at once,
         in superchunks of SEED_SUPERCHUNK2 at SEED_M_OUT2, so every read of
         a chunk is final before the next chunk is read. Ineligible reads
-        are never yielded."""
+        are never yielded. `counters` (a pipeline.PipeCounters) gets a span
+        of each superchunk's pack, dispatch and collect when traced."""
         from ..ops import seeding as SD
 
         index = self._ensure_dev_index()
+        span = (counters.span if counters is not None
+                else lambda name: nullcontext())
 
         def seed(part, m_out):
             # part: (block index, read) pairs. A superchunk has one row per
             # read, so no padding rows ship; the anchors do not depend on pad
             seqs = [r for _, r in part]
             pad = 1 << max(int(np.ceil(np.log2(max(map(len, seqs))))), 10)
-            w, n_mask = SD.pack_superchunk(seqs, pad, len(seqs))
-            return SD.collect_wire(SD.dispatch_wire(w, index, m_out),
-                                   len(seqs), n_mask, m_out)
+            with span("collector.pack"):
+                w, n_mask = SD.pack_superchunk(seqs, pad, len(seqs))
+            with span("collector.dispatch"):
+                handle = SD.dispatch_wire(w, index, m_out)
+            with span("collector.collect"):
+                return SD.collect_wire(handle, len(seqs), n_mask, m_out)
 
         for i0, seqs in chunks:
             el = [(i0 + j, r) for j, r in enumerate(seqs)
@@ -742,7 +749,7 @@ class Mapper:
         (apx_finish); reads the device did not extend, or whose finish
         asks for the re-apx path, get the full native map with their device
         seeds. `counters` (a pipeline.PipeCounters) gets the seeding
-        counts."""
+        counts, and when traced the seeding spans."""
         n = len(reads.seqs)
         self._f1_bufs = {}
         if self.cfg.bal_flag == 0:
@@ -752,8 +759,11 @@ class Mapper:
         seeds: List = [None] * n
         on_device = self.device_work()
         if on_device:
+            # as _SeedCollector.run: the counters go along only when traced
+            kw = ({"counters": counters}
+                  if counters is not None and counters.trace else {})
             for m_out, idxs, anchors in self._device_seed_stream2(
-                    [(0, reads.seqs)]):
+                    [(0, reads.seqs)], **kw):
                 for i, a in zip(idxs, anchors):
                     seeds[i] = a
                 if counters is not None:

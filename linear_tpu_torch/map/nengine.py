@@ -126,6 +126,8 @@ def engine_lib():
             lib.le_index_free.argtypes = [C.c_void_p]
             lib.le_stage_ns.restype = None
             lib.le_stage_ns.argtypes = [C.c_void_p, C.POINTER(C.c_int64)]
+            lib.le_apx_stage_ns.restype = None
+            lib.le_apx_stage_ns.argtypes = [C.POINTER(C.c_int64)]
             lib.le_pack_superchunk.restype = None
             lib.le_pack_superchunk.argtypes = [
                 C.POINTER(C.c_void_p), C.POINTER(C.c_int64), C.c_int64,
@@ -333,6 +335,14 @@ class NativeEngine:
         phases since the last call (the counters restart at 0)."""
         buf = (C.c_int64 * 4)()
         self._lib.le_stage_ns(self._h, buf)
+        return list(buf)
+
+    def apx_stage_ns(self) -> List[int]:
+        """Wall ns of the apx phase's host seeding (query_anchors), chain
+        and extension since the last call, summed over every engine of the
+        process (the counters restart at 0)."""
+        buf = (C.c_int64 * 3)()
+        self._lib.le_apx_stage_ns(buf)
         return list(buf)
 
     def map_read(self, read: np.ndarray, rid: str,

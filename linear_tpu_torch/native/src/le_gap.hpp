@@ -1115,31 +1115,22 @@ static inline void create_tiles_from_anchors2(const GapContext& cx_, const u8* r
                                               i64 read_len, int direction,
                                               GapParms& gp) {
     std::vector<u64> tmp_tiles;
-    {
-        CtNsScope _c(0);
-        g_create_chains_from_anchors(anchors, tmp_tiles, gap_str, gap_end, read_len, gp);
-    }
+    g_create_chains_from_anchors(anchors, tmp_tiles, gap_str, gap_end, read_len, gp);
     i64 pre_i = 0;
     i64 i = 0;
     while (i < (i64)tmp_tiles.size()) {
         if (is_tile_end(tmp_tiles[i])) {
             u64 head_tile = tmp_tiles[pre_i];
             u64 tail_tile = tmp_tiles[i];
-            {
-                CtNsScope _c(1);
-                i += re_extend_clip_one_side(cx_, ref, ref_len, tmp_tiles, gap_str,
-                                             gap_end, pre_i, i, -1, gp);
-                i += re_extend_clip_one_side(cx_, ref, ref_len, tmp_tiles, gap_str,
-                                             gap_end, pre_i, i, 1, gp);
-            }
+            i += re_extend_clip_one_side(cx_, ref, ref_len, tmp_tiles, gap_str,
+                                         gap_end, pre_i, i, -1, gp);
+            i += re_extend_clip_one_side(cx_, ref, ref_len, tmp_tiles, gap_str,
+                                         gap_end, pre_i, i, 1, gp);
             if (!(tmp_tiles.empty() || pre_i < 0 || i < 0)) {
                 tmp_tiles[pre_i] = copy_tile_sgn(head_tile, tmp_tiles[pre_i]);
                 tmp_tiles[i] = copy_tile_sgn(tail_tile, tmp_tiles[i]);
-                {
-                    CtNsScope _c(2);
-                    g_create_tiles_from_chains2(tmp_tiles, tiles_str, tiles_end, cx_,
-                                                gap_str, gap_end, pre_i, i + 1, gp);
-                }
+                g_create_tiles_from_chains2(tmp_tiles, tiles_str, tiles_end, cx_,
+                                            gap_str, gap_end, pre_i, i + 1, gp);
             }
             pre_i = i + 1;
         } else if (i < (i64)tmp_tiles.size() - 1 &&
@@ -1147,21 +1138,15 @@ static inline void create_tiles_from_anchors2(const GapContext& cx_, const u8* r
             i64 ln = (i64)tiles_str.size();
             u64 head_tile = tmp_tiles[pre_i];
             u64 tail_tile = tmp_tiles[i];
-            {
-                CtNsScope _c(1);
-                i += re_extend_clip_one_side(cx_, ref, ref_len, tmp_tiles, gap_str,
-                                             gap_end, pre_i, i, -1, gp);
-                i += re_extend_clip_one_side(cx_, ref, ref_len, tmp_tiles, gap_str,
-                                             gap_end, pre_i, i, 1, gp);
-            }
+            i += re_extend_clip_one_side(cx_, ref, ref_len, tmp_tiles, gap_str,
+                                         gap_end, pre_i, i, -1, gp);
+            i += re_extend_clip_one_side(cx_, ref, ref_len, tmp_tiles, gap_str,
+                                         gap_end, pre_i, i, 1, gp);
             if (!(tmp_tiles.empty() || pre_i < 0 || i < 0)) {
                 tmp_tiles[pre_i] = copy_tile_sgn(head_tile, tmp_tiles[pre_i]);
                 tmp_tiles[i] = copy_tile_sgn(tail_tile, tmp_tiles[i]);
-                {
-                    CtNsScope _c(2);
-                    g_create_tiles_from_chains2(tmp_tiles, tiles_str, tiles_end, cx_,
-                                                gap_str, gap_end, pre_i, i + 1, gp);
-                }
+                g_create_tiles_from_chains2(tmp_tiles, tiles_str, tiles_end, cx_,
+                                            gap_str, gap_end, pre_i, i + 1, gp);
                 if (ln != (i64)tiles_str.size()) {
                     tiles_str.back() = remove_tile_sgn_end(tiles_str.back());
                     tiles_end.back() = remove_tile_sgn_end(tiles_end.back());

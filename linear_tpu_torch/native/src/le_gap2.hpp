@@ -439,7 +439,7 @@ static inline void map_extends(const GapContext& cx_, std::vector<u64>& tiles_st
 }
 
 // mapInterval (src/gap_util.cpp:4444)
-static inline int map_interval_timed(const GapContext& cx_, const u8* seq1, i64 seq1_len,
+static inline int map_interval(const GapContext& cx_, const u8* seq1, i64 seq1_len,
                                std::vector<u64>& tiles_str,
                                std::vector<u64>& tiles_end, u64 gap_str,
                                u64 gap_end, i64 anchor_lower, i64 anchor_upper,
@@ -462,27 +462,13 @@ static inline int map_interval_timed(const GapContext& cx_, const u8* seq1, i64 
         g_map_hs_kmer(cx_.read, cx_.read_len, g_hs, gr_str, gr_end, shape_len,
                       step2, 1);
     }
-    {
-        GapNsScope _t3(3);
-        g_create_anchors(g_hs, anchors, shape_len, direction, anchor_lower,
-                         anchor_upper, cx_.read_len - 1, gap_str, gap_end, gp);
-        if ((i64)anchors.size() > thd_mi_filter && f_filter)
-            filter_gap_anchors(anchors, gap_str, gap_end, direction, gp);
-    }
+    g_create_anchors(g_hs, anchors, shape_len, direction, anchor_lower,
+                     anchor_upper, cx_.read_len - 1, gap_str, gap_end, gp);
+    if ((i64)anchors.size() > thd_mi_filter && f_filter)
+        filter_gap_anchors(anchors, gap_str, gap_end, direction, gp);
     create_tiles_from_anchors2(cx_, seq1, seq1_len, anchors, tiles_str, tiles_end,
                                gap_str, gap_end, cx_.read_len - 1, direction, gp);
     return 0;
-}
-
-static inline int map_interval(const GapContext& cx_, const u8* seq1, i64 seq1_len,
-                               std::vector<u64>& tiles_str,
-                               std::vector<u64>& tiles_end, u64 gap_str,
-                               u64 gap_end, i64 anchor_lower, i64 anchor_upper,
-                               int direction, GapParms& gp, int f_filter) {
-    GapNsScope _t(2);
-    return map_interval_timed(cx_, seq1, seq1_len, tiles_str, tiles_end,
-                              gap_str, gap_end, anchor_lower, anchor_upper,
-                              direction, gp, f_filter);
 }
 
 // mapGeneric (src/gap_util.cpp:4492)

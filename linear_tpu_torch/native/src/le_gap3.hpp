@@ -21,7 +21,7 @@ static inline i64 get_max_gapsy_overlap(const std::vector<PII>& gapsy, u64 gap_s
 }
 
 // mapGap_ (src/gap.cpp:16)
-static inline int map_gap__timed(const GapContext& cx_, u64 gap_str, u64 gap_end,
+static inline int map_gap_(const GapContext& cx_, u64 gap_str, u64 gap_end,
                            std::vector<u64>& tiles_str, std::vector<u64>& tiles_end,
                            int direction, i64 thd_dxy_min, GapParms& gp) {
     tiles_str.clear();
@@ -246,15 +246,6 @@ static inline int map_gap__timed(const GapContext& cx_, u64 gap_str, u64 gap_end
 }
 
 // mapGaps (src/gap.cpp:407)
-static inline int map_gap_(const GapContext& cx_, u64 gap_str, u64 gap_end,
-                           std::vector<u64>& tiles_str,
-                           std::vector<u64>& tiles_end, int direction,
-                           i64 thd_dxy_min, GapParms& gp) {
-    GapNsScope _t(1);
-    return map_gap__timed(cx_, gap_str, gap_end, tiles_str, tiles_end,
-                          direction, thd_dxy_min, gp);
-}
-
 static inline void map_gaps(const GapContext& cx_, std::vector<u64>& cords_str,
                             std::vector<u64>& cords_end, GapParms& gp) {
     if (cords_str.size() <= 1) return;

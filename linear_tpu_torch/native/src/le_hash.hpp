@@ -275,41 +275,6 @@ static inline void query_anchors(const DIndexView& ix, const u8* read,
 // ---------------------------------------------------- gap-module streams
 // g_hs: N/A[1]|xval[30]|type[2]|strand[1]|coordinate[30] (src/gap_util.cpp:522)
 
-// gap-module wall accumulators (ns): 0 = kmer/clip streams, 1 = map_gap_
-// total, 2 = map_interval total, 3 = set_anchors+chain inside intervals.
-// Defined in lt_engine.cpp; read via le_gap_stage_ns.
-extern i64 g_gap_ns[4];
-extern i64 g_ct_ns[4];  // create_tiles internals: chains/reext/tiles/spare
-struct CtNsScope {
-    int k;
-    double t0;
-    CtNsScope(int k_) : k(k_) {
-#ifdef _OPENMP
-        t0 = omp_get_wtime();
-#endif
-    }
-    ~CtNsScope() {
-#ifdef _OPENMP
-        g_ct_ns[k] += (i64)((omp_get_wtime() - t0) * 1e9);
-#endif
-    }
-};
-struct GapNsScope {
-    int k;
-    double t0;
-    GapNsScope(int k_) : k(k_) {
-        t0 = 0;
-#ifdef _OPENMP
-        t0 = omp_get_wtime();
-#endif
-    }
-    ~GapNsScope() {
-#ifdef _OPENMP
-        g_gap_ns[k] += (i64)((omp_get_wtime() - t0) * 1e9);
-#endif
-    }
-};
-
 static inline u64 g_hs_make(u64 xval, int typ, int std, i64 coord) {
     return (xval << 33) + ((u64)typ << 31) + ((u64)std << 30) + (u64)coord;
 }
@@ -320,7 +285,6 @@ static inline u64 g_hs_xt(u64 v) { return (v >> 31) & ((1ull << 32) - 1); }
 // (hashInit + per-base roll; value = x<0 ? crh : h; strand = x<0)
 static inline void g_map_hs_kmer(const u8* seq, i64 n, std::vector<u64>& g_hs,
                                  i64 s, i64 e, int shape_len, i64 step, int typ) {
-    GapNsScope _t(0);
     if (n < shape_len) return;
     i64 stop = std::min(e, n - shape_len);
     HashStream st(shape_len, shape_len);
@@ -342,7 +306,6 @@ static inline void g_map_hs_kmer(const u8* seq, i64 n, std::vector<u64>& g_hs,
 static inline void c_stream(const u8* seq, i64 n, std::vector<u64>& g_hs,
                             i64 sq_str, i64 sq_end, i64 step, int shape_len,
                             int typ) {
-    GapNsScope _t(0);
     if (n < shape_len) return;
     i64 stop = std::min(sq_end, n - shape_len);
     u64 h = 0;

@@ -32,7 +32,7 @@
 
 using namespace le;
 
-namespace le { i64 g_apx_ns[3] = {0, 0, 0}; i64 g_gap_ns[4] = {0, 0, 0, 0}; i64 g_ct_ns[4] = {0, 0, 0, 0}; }
+namespace le { i64 g_apx_ns[3] = {0, 0, 0}; }
 
 namespace {
 
@@ -704,14 +704,6 @@ void le_stage_ns(void* ep, i64* out4) {
 
 void le_apx_stage_ns(i64* out3) {
     for (int k = 0; k < 3; k++) { out3[k] = g_apx_ns[k]; g_apx_ns[k] = 0; }
-}
-
-void le_ct_stage_ns(i64* out4) {
-    for (int i = 0; i < 4; i++) { out4[i] = g_ct_ns[i]; g_ct_ns[i] = 0; }
-}
-
-void le_gap_stage_ns(i64* out4) {
-    for (int k = 0; k < 4; k++) { out4[k] = g_gap_ns[k]; g_gap_ns[k] = 0; }
 }
 
 i64 le_index_hs_len(void* bp) { return (i64)((IndexBuild*)bp)->hs.size(); }

@@ -21,6 +21,12 @@ src/linear.cpp:67-95):
   Stage P (main thread)     in-order drain and file emission (mirrors
                             p_PrintResults ordering, src/parallel_io.cpp:522).
 
+With tracing on (PipelineMapper.trace; LINEAR_TPU_TRACE), a run's
+PipeCounters also records spans of every stage, per block, superchunk and
+task (the workers' come back with their tasks' results), each thread's
+CPU time, and the workers' native phase times; write_trace writes them as
+Chrome trace-event JSON.
+
 The pool forks in PipelineMapper.__init__, before anything initialises
 CUDA: the device index is uploaded later (Mapper._ensure_dev_index), and
 workers never touch torch.cuda. A device error is never swallowed: the
@@ -28,14 +34,17 @@ collector keeps it, and the feeder and the drain re-raise it.
 """
 from __future__ import annotations
 
+import itertools
+import json
 import multiprocessing as mp
 import os
 import queue
 import sys
 import threading
 import time
+from contextlib import nullcontext
 from dataclasses import dataclass, field
-from typing import Dict, Iterator, List, Optional
+from typing import Dict, Iterator, List, NamedTuple, Optional
 
 import numpy as np
 
@@ -69,9 +78,25 @@ def _map_chunk(task):
     lines either the native engine maps the chunk in one ctypes crossing.
     The Python engine rebuilds the ChainsRecords of the reads the device
     chained from their raw DP tables (linear_tpu/parallel/pipeline.py:
-    95-113)."""
-    reads, rids, seeds, chains, collect_bam, collect_cords, persist = task
-    reads, rids = _task_reads(reads, rids)
+    95-113). A traced task carries its task id as an eighth item and comes
+    back as (that list, the worker's spans, its native phase ns)."""
+    if len(task) == 7:
+        return _residual(*task)
+    c = PipeCounters(trace=True, enabled=False)
+    with c.span("worker.task", task[7]) as sp:
+        out = _residual(*task[:7], c=c)
+        sp.args = {k + "_ns": v for k, v in c.worker_ns.items()}
+    return out, c.spans, c.worker_ns
+
+
+def _residual(reads, rids, seeds, chains, collect_bam, collect_cords,
+              persist, c=None):
+    """_map_chunk's work; `c` (a traced PipeCounters) gets the spans of the
+    reads' parse and of the engine call, and the native engine's phase ns
+    of that call."""
+    span = c.span if c is not None else _no_span
+    with span("worker.parse"):
+        reads, rids = _task_reads(reads, rids)
     m = _WORKER_MAPPER
     # State model (linear_tpu.map.mapper.Mapper.gap_parms): the reference's
     # GapParms are per COMPUTE THREAD and persist across tasks. With ONE
@@ -80,18 +105,29 @@ def _map_chunk(task):
     # reference's observed split-schedule outcome.
     if not persist:
         m.reset_gap_parms()
-    if not m.use_native():
-        chain_pre = [None if c is None else
-                     (c[0], chain_records_from_dp(c[1], c[2], c[3], len(c[0])))
-                     for c in chains]
-        out = m.py_map_reads(reads, rids, seeds, chain_pre, [0] * len(reads),
-                             collect_bam)
-    elif not (collect_bam or collect_cords):
-        return [([], [], m.native_engine().map_block(reads, rids,
-                                                     seeds_list=seeds), [])]
-    else:
-        out = [m.native_map_read(read, rid, seeds=s, collect_bam=collect_bam)
-               for read, rid, s in zip(reads, rids, seeds)]
+    ne = m.native_engine() if c is not None and m.use_native() else None
+    if ne is not None:
+        # what earlier tasks and the warm-up left in the counters
+        ne.stage_ns()
+        ne.apx_stage_ns()
+    with span("worker.map"):
+        if not m.use_native():
+            chain_pre = [None if ch is None else
+                         (ch[0], chain_records_from_dp(ch[1], ch[2], ch[3],
+                                                       len(ch[0])))
+                         for ch in chains]
+            out = m.py_map_reads(reads, rids, seeds, chain_pre,
+                                 [0] * len(reads), collect_bam)
+        elif not (collect_bam or collect_cords):
+            out = [([], [], m.native_engine().map_block(
+                reads, rids, seeds_list=seeds), [])]
+        else:
+            out = [m.native_map_read(read, rid, seeds=s,
+                                     collect_bam=collect_bam)
+                   for read, rid, s in zip(reads, rids, seeds)]
+    if ne is not None:
+        c.add_worker_ns(dict(zip(WORKER_STAGES,
+                                 ne.stage_ns() + ne.apx_stage_ns())))
     return out if collect_cords else [([], [], sam, bl)
                                       for _, _, sam, bl in out]
 
@@ -110,6 +146,71 @@ class BlockResult:
         return self.n_reads or len(self.block.seqs)
 
 
+# the native engine's phase counters a traced task reads: le_stage_ns
+# (features, apx, gap, output) and le_apx_stage_ns (the apx phase's host
+# seeding, chain and extension)
+WORKER_STAGES = ("features", "apx", "gap", "output", "apx.host_seed",
+                 "apx.chain", "apx.extend")
+
+
+class Span(NamedTuple):
+    """One traced stage of a run, in one thread of one process."""
+
+    id: int
+    parent: int     # the span open around it in its thread; -1: none
+    name: str
+    pid: int
+    tid: int        # threading.get_native_id()
+    t0: int         # time.perf_counter_ns(): CLOCK_MONOTONIC on Linux,
+    t1: int         # one clock for the forked workers too
+    cpu0: int       # time.thread_time_ns() of its thread
+    cpu1: int
+    task: int = -1  # the task's id, where the span is of one task
+    args: Optional[dict] = None
+
+
+class _SpanScope:
+    """Records a Span on `c` from __enter__ to __exit__; `args` may be set
+    inside."""
+
+    __slots__ = ("c", "name", "task", "args", "id", "parent", "t0", "cpu0")
+
+    def __init__(self, c: "PipeCounters", name: str, task: int):
+        self.c, self.name, self.task, self.args = c, name, task, None
+
+    def __enter__(self) -> "_SpanScope":
+        stack = self.c._stack()
+        self.parent = stack[-1] if stack else -1
+        self.id = next(self.c._ids)
+        stack.append(self.id)
+        # the thread's CPU is read inside the wall interval
+        self.t0 = time.perf_counter_ns()
+        self.cpu0 = time.thread_time_ns()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        cpu1 = time.thread_time_ns()
+        t1 = time.perf_counter_ns()
+        self.c._stack().pop()
+        self.c.spans.append(Span(self.id, self.parent, self.name, os.getpid(),
+                                 threading.get_native_id(), self.t0, t1,
+                                 self.cpu0, cpu1, self.task, self.args))
+
+
+_NO_SPAN = nullcontext()
+
+
+def _no_span(name: str, task: int = -1):
+    return _NO_SPAN
+
+
+def trace_path() -> Optional[str]:
+    """LINEAR_TPU_TRACE: the file a CLI run writes its trace to, which
+    also turns tracing on; None when unset, empty or "0"."""
+    v = os.environ.get("LINEAR_TPU_TRACE")
+    return v if v and v != "0" else None
+
+
 @dataclass
 class PipeCounters:
     """Counts of one PipelineMapper.run, which the CLI prints at the end of
@@ -121,7 +222,12 @@ class PipeCounters:
     and drained in order (stage P), each with its rate, redrawn on stderr
     every `interval` seconds by a thread between start() and stop().
     LINEAR_TPU_DASH=1 turns it on, =0 off; unset, it is on when stderr is
-    a terminal. Each count has one writer thread."""
+    a terminal. Each count has one writer thread.
+
+    With `trace` on, the run also records its spans (span(); per block,
+    superchunk and task, never per read), the CPU time of the feeder, the
+    seed collectors and the drain, and the workers' native phase ns
+    summed over tasks (worker_ns, keys WORKER_STAGES)."""
 
     t0: float = field(default_factory=time.time)
     fetched: int = 0          # reads read from disk
@@ -144,6 +250,15 @@ class PipeCounters:
     seed_last_s: Optional[float] = None
     enabled: Optional[bool] = None  # the dashboard; None: LINEAR_TPU_DASH
     interval: float = 0.5
+    trace: bool = False
+    spans: List[Span] = field(default_factory=list, repr=False)
+    feeder_cpu_ns: int = 0
+    collector_cpu_ns: int = 0
+    drain_cpu_ns: int = 0
+    worker_ns: Dict[str, int] = field(default_factory=dict)
+    _ids: Iterator[int] = field(default_factory=itertools.count, repr=False)
+    _open: threading.local = field(default_factory=threading.local,
+                                   repr=False)
     _stop: threading.Event = field(default_factory=threading.Event,
                                    repr=False)
     _th: Optional[threading.Thread] = field(default=None, repr=False)
@@ -154,6 +269,71 @@ class PipeCounters:
             env = os.environ.get("LINEAR_TPU_DASH")
             self.enabled = (env != "0" if env is not None
                             else sys.stderr.isatty())
+
+    def span(self, name: str, task: int = -1):
+        """A context that records a span `name` in the calling thread while
+        tracing is on, and does nothing otherwise."""
+        return _SpanScope(self, name, task) if self.trace else _NO_SPAN
+
+    def _stack(self) -> List[int]:
+        st = getattr(self._open, "ids", None)
+        if st is None:
+            st = self._open.ids = []
+        return st
+
+    def steps(self, it, name: str):
+        """it, with a span `name` around the making of each item while
+        tracing is on."""
+        if not self.trace:
+            yield from it
+            return
+        it, end = iter(it), object()
+        while True:
+            with self.span(name):
+                x = next(it, end)
+            if x is end:
+                return
+            yield x
+
+    def add_worker_ns(self, ns: Dict[str, int]) -> None:
+        """Add a task's native phase ns (keys WORKER_STAGES)."""
+        for k, v in ns.items():
+            self.worker_ns[k] = self.worker_ns.get(k, 0) + v
+
+    def adopt(self, spans: List[Span]) -> None:
+        """Add the spans a worker recorded for one task, under ids of this
+        run."""
+        ids = {sp.id: next(self._ids) for sp in spans}
+        self.spans.extend(sp._replace(id=ids[sp.id],
+                                      parent=ids.get(sp.parent, -1))
+                          for sp in spans)
+
+    def trace_events(self, label: str = "") -> List[dict]:
+        """The run's spans as Chrome trace events ("X", microseconds on
+        CLOCK_MONOTONIC), with a thread_name event for each thread."""
+        ev, names = [], {}
+        for sp in self.spans:
+            names.setdefault((sp.pid, sp.tid), sp.name.split(".")[0])
+            args = {"id": sp.id, "parent": sp.parent,
+                    "cpu_us": (sp.cpu1 - sp.cpu0) / 1e3}
+            if sp.task >= 0:
+                args["task"] = sp.task
+            if label:
+                args["run"] = label
+            ev.append({"name": sp.name, "ph": "X", "ts": sp.t0 / 1e3,
+                       "dur": (sp.t1 - sp.t0) / 1e3, "pid": sp.pid,
+                       "tid": sp.tid, "args": {**args, **(sp.args or {})}})
+        ev.extend({"name": "thread_name", "ph": "M", "pid": pid, "tid": tid,
+                   "args": {"name": role}}
+                  for (pid, tid), role in names.items())
+        return ev
+
+    def totals(self) -> dict:
+        """The run's counts and CPU and phase times, for a trace file."""
+        return {k: getattr(self, k) for k in (
+            "fetched", "seeded", "computed", "emitted", "shipped_seeded",
+            "host_n", "host_overflow", "feeder_cpu_ns", "collector_cpu_ns",
+            "drain_cpu_ns", "worker_ns")} | {"spans": len(self.spans)}
 
     def start(self) -> "PipeCounters":
         """Start the dashboard thread, when enabled."""
@@ -235,7 +415,8 @@ class _SeedCollector(threading.Thread):
         a = 0
         while a < self.n:
             b = min(a + (max(1, step // 8) if a == 0 else step), self.n)
-            seqs = self.reads(a, b)
+            with self.c.span("collector.read"):
+                seqs = self.reads(a, b)
             with self.cond:
                 # ineligible reads are never yielded: final at once
                 for j, r in enumerate(seqs):
@@ -246,11 +427,19 @@ class _SeedCollector(threading.Thread):
             a = b
 
     def run(self):
+        cpu0 = time.thread_time_ns() if self.c.trace else 0
+        # the counters go along only when traced, so that a replacement of
+        # _device_seed_stream2 that takes the chunks alone keeps working
+        kw = {"counters": self.c} if self.c.trace else {}
         try:
             for m_out, idxs, anchors in self.mapper._device_seed_stream2(
-                    self._chunks()):
-                chains = (self.mapper._device_chain_block(anchors, raw=True)
-                          if self.chain else [None] * len(idxs))
+                    self._chunks(), **kw):
+                if self.chain:
+                    with self.c.span("collector.chain"):
+                        chains = self.mapper._device_chain_block(anchors,
+                                                                 raw=True)
+                else:
+                    chains = [None] * len(idxs)
                 with self.cond:
                     for i, a, ch in zip(idxs, anchors, chains):
                         self.seeds[i] = a
@@ -265,6 +454,8 @@ class _SeedCollector(threading.Thread):
             with self.cond:
                 self.final[:] = True
                 self.cond.notify_all()
+            if self.c.trace:
+                self.c.collector_cpu_ns += time.thread_time_ns() - cpu0
 
     def wait_final(self, i: int, j: int) -> None:
         """Block until reads [i, j) are final; raise the collector's error."""
@@ -275,11 +466,15 @@ class _SeedCollector(threading.Thread):
 
 
 class PipelineMapper:
-    """Drives Mapper over one read file with the 3-stage pipeline."""
+    """Drives Mapper over one read file with the 3-stage pipeline. `trace`
+    (default: LINEAR_TPU_TRACE set, trace_path) turns on the runs'
+    tracing (PipeCounters.trace)."""
 
     def __init__(self, mapper, n_workers: Optional[int] = None,
-                 csize_workers: Optional[int] = None):
+                 csize_workers: Optional[int] = None,
+                 trace: Optional[bool] = None):
         self.mapper = mapper
+        self.trace = trace_path() is not None if trace is None else trace
         # one worker more than cores: workers stall on result pickling /
         # task IPC often enough that mild oversubscription wins
         self.n_workers = n_workers or (max(os.cpu_count() or 1, 1) + 1)
@@ -320,28 +515,33 @@ class PipelineMapper:
         pool = self.pool
         q: "queue.Queue" = queue.Queue(maxsize=64)
         END_BLOCK = object()
-        c = self.counters = PipeCounters()
+        c = self.counters = PipeCounters(trace=self.trace)
+        tr = c.trace
         seeding = m.device_work()
 
         def feeder():
+            cpu0 = time.thread_time_ns() if tr else 0
             try:
                 # byte offsets let workers (and the seed collector) read
                 # their chunk from the file instead of receiving the reads
                 # pickled (None for gzipped input: the reads are pickled)
-                offs = seqio.scan_record_offsets(read_path)
+                with c.span("feeder.offsets"):
+                    offs = seqio.scan_record_offsets(read_path)
                 # SAM-only runs never parse a whole block in THIS process:
                 # blocks become offset ranges
                 need_parse = collect_cords or offs is None
 
                 def blocks_iter():
                     if need_parse:
-                        for b in seqio.read_blocks(read_path):
+                        for b in c.steps(seqio.read_blocks(read_path),
+                                         "feeder.block"):
                             yield b, len(b.seqs)
                     else:
                         for s0 in range(0, len(offs) - 1, 50000):
                             yield seqio.SeqSet(), min(50000, len(offs) - 1 - s0)
 
                 g0 = 0  # global record index of the current block start
+                k = 0  # task id, when traced
                 coll = None
                 for block, n in blocks_iter():
                     c.fetched += n
@@ -368,7 +568,8 @@ class PipelineMapper:
                         seeds, chains = coll.seeds, coll.chains
                     for i, j in spans:
                         if seeding:
-                            coll.wait_final(i, j)
+                            with c.span("feeder.wait_seeds", k):
+                                coll.wait_final(i, j)
                         if offs is not None:
                             payload = ("range", read_path, int(offs[g0 + i]),
                                        int(offs[g0 + j]), j - i)
@@ -377,9 +578,12 @@ class PipelineMapper:
                             payload = block.seqs[i:j]
                             rid_payload = block.ids[i:j]
                         task_seeds = seeds[i:j]
-                        q.put((payload, rid_payload, task_seeds,
-                               chains[i:j], collect_bam, collect_cords,
-                               persist))
+                        task = (payload, rid_payload, task_seeds,
+                                chains[i:j], collect_bam, collect_cords,
+                                persist)
+                        with c.span("feeder.put", k):
+                            q.put(task + (k,) if tr else task)
+                        k += 1
                         c.shipped_seeded += sum(s is not None
                                                 for s in task_seeds)
                     q.put((END_BLOCK, block, n, coll))
@@ -387,6 +591,9 @@ class PipelineMapper:
                 q.put(None)
             except BaseException as e:  # surface in main thread
                 q.put(e)
+            finally:
+                if tr:
+                    c.feeder_cpu_ns += time.thread_time_ns() - cpu0
 
         th = threading.Thread(target=feeder, daemon=True)
         th.start()
@@ -398,16 +605,29 @@ class PipelineMapper:
         th.join()
 
     def _drain(self, q, pool, END_BLOCK, c: PipeCounters):
+        """The in-order drain. Traced, its CPU runs from each resumption to
+        the next yield: the consumer's time between blocks is not its."""
+        tr = c.trace
+        cpu0 = time.thread_time_ns() if tr else 0
         pending: List = []  # AsyncResults of the current block, in order
         while True:
-            item = q.get()
+            with c.span("drain.get"):
+                item = q.get()
             if item is None:
                 break
             if isinstance(item, BaseException):
                 raise item
             if isinstance(item, tuple) and item and item[0] is END_BLOCK:
                 _, block, n_reads, coll = item
-                results = [r for ar in pending for r in ar.get()]
+                with c.span("drain.results"):
+                    results = []
+                    for ar in pending:
+                        res = ar.get()
+                        if tr:
+                            res, w_spans, w_ns = res
+                            c.adopt(w_spans)
+                            c.add_worker_ns(w_ns)
+                        results.extend(res)
                 pending = []
                 if coll is not None:
                     # the block's output does not depend on its seeds, but
@@ -416,15 +636,40 @@ class PipelineMapper:
                     if coll.error is not None:
                         raise coll.error
                 c.emitted += n_reads
-                yield BlockResult(block, [r[0] for r in results],
-                                  [r[1] for r in results],
-                                  "".join(r[2] for r in results),
-                                  [ln for r in results for ln in r[3]],
-                                  n_reads=n_reads)
+                with c.span("drain.join"):
+                    br = BlockResult(block, [r[0] for r in results],
+                                     [r[1] for r in results],
+                                     "".join(r[2] for r in results),
+                                     [ln for r in results for ln in r[3]],
+                                     n_reads=n_reads)
+                if tr:
+                    c.drain_cpu_ns += time.thread_time_ns() - cpu0
+                yield br
+                if tr:
+                    cpu0 = time.thread_time_ns()
                 continue
             p0 = item[0]
             n_task = (p0[4] if isinstance(p0, tuple) and p0
                       and p0[0] == "range" else len(p0))
-            pending.append(pool.apply_async(
-                _map_chunk, (item,), callback=lambda res, k=n_task: setattr(
-                    c, "computed", c.computed + k)))
+            with c.span("drain.submit", item[7] if tr else -1):
+                pending.append(pool.apply_async(
+                    _map_chunk, (item,),
+                    callback=lambda res, k=n_task: setattr(
+                        c, "computed", c.computed + k)))
+        if tr:
+            c.drain_cpu_ns += time.thread_time_ns() - cpu0
+
+
+def write_trace(path: str, runs) -> None:
+    """Write the spans and counters of traced runs, [(label, PipeCounters)]
+    (a CLI run: one a read file), as one Chrome trace-event JSON file, which
+    Perfetto and chrome://tracing open: timestamps in microseconds of
+    CLOCK_MONOTONIC, each run's totals under otherData."""
+    events = [e for label, c in runs for e in c.trace_events(label)]
+    doc = {"traceEvents": events, "displayTimeUnit": "ms",
+           "otherData": {"clock": "CLOCK_MONOTONIC (time.perf_counter_ns)",
+                         "ts_unit": "us",
+                         "runs": [{"run": label, **c.totals()}
+                                  for label, c in runs]}}
+    with open(path, "w") as f:
+        json.dump(doc, f)
