@@ -11,15 +11,24 @@ A traffic file gives:
            (b + 1) % 4, deleted or copied with probabilities sub, del and
            the rest, given it was not an insertion;
   reverse_share  the share of reads that are reverse-complemented;
-  files, file_reads  the pool: files of distinct reads.
+  files, file_reads  the pool: files of distinct reads;
+  donor    optional (gen/donor.py): the reads come from a donor genome,
+           the reference with structural variants applied.
 The set-up maps once a warm-up file of WARMUP_READS reads of the mix.
 
 Lengths are the quantiles (i + 1/2) / n of the distribution, shuffled by
 the seed: every seed maps the same multiset of lengths, so seeds change
 where reads come from and not how much work they are. Sources lie wholly
-in N-free sequence. Each read's truth is (start, end, reverse, unique) on
-the genome, 0-based and half-open; unique is 1 where the source holds no
-position of the genome's mask (no near-identical copy elsewhere).
+in N-free sequence. Reads are drawn from a donor (gen/donor.py): the
+traffic's, or without one the reference itself (donor.identity). Each
+read's truth is (start, end, reverse, unique, source start, source end,
+source reverse): the first four on the reference genome, 0-based and
+half-open, the last three on the donor. A read's source lifts to one or
+more reference segments: its truth is the longest of them, on the strand
+the read has against it, and unique is 1 where no segment holds a
+position of the genome's mask (no near-identical copy elsewhere); a read
+of novel sequence alone has no segment, start = end = -1, and is not
+unique. From the identity donor the source is its one segment.
 """
 from __future__ import annotations
 
@@ -76,14 +85,17 @@ def add_errors(rng, src: np.ndarray, sub: float, ins: float, dele: float):
     return out, ends
 
 
-def make_file(rng, genome: np.ndarray, traffic: dict, n: int, mask=None):
-    """One file of n reads: (list of uint8 arrays, truth (n, 4) int64 of
-    start, end, reverse, unique)."""
+def make_file(rng, donor, traffic: dict, n: int, mask=None):
+    """One file of n reads drawn from donor.seq (gen/donor.py; the
+    reference itself for donor.identity): (list of uint8 arrays, truth
+    (n, 7) int64 of start, end, reverse, unique, source start, source end,
+    source reverse)."""
+    seq = donor.seq
     lens = rng.permutation(quantile_lengths(traffic["length"], n))
-    starts = draw_starts(rng, genome, lens)
+    starts = draw_starts(rng, seq, lens)
     rev = np.zeros(n, dtype=bool)
     rev[rng.permutation(n)[: int(round(n * traffic["reverse_share"]))]] = True
-    src = np.concatenate([genome[s: s + k]
+    src = np.concatenate([seq[s: s + k]
                           for s, k in zip(starts.tolist(), lens.tolist())])
     e = traffic["errors"]
     out, ends = add_errors(rng, src, e["sub"], e["ins"], e["del"])
@@ -94,22 +106,40 @@ def make_file(rng, genome: np.ndarray, traffic: dict, n: int, mask=None):
     for a, z, r in zip(lo.tolist(), hi.tolist(), rev.tolist()):
         seg = out[a:z]
         reads.append((3 - seg[::-1]) if r else seg)
-    if mask is None:
-        unique = np.ones(n, dtype=np.int64)
-    else:
-        mcum = np.concatenate([[0], np.cumsum(mask)])
-        unique = (mcum[starts + lens] - mcum[starts] == 0).astype(np.int64)
-    truth = np.stack([starts, starts + lens, rev.astype(np.int64), unique],
-                     axis=1)
+    mcum = (None if mask is None
+            else np.concatenate([[0], np.cumsum(mask)]))
+    ref, unique = lift_truth(donor, starts, lens, rev, mcum)
+    truth = np.concatenate([ref, unique[:, None], starts[:, None],
+                            (starts + lens)[:, None],
+                            rev.astype(np.int64)[:, None]], axis=1)
     return reads, truth
 
 
-def make_pool(rng, genome: np.ndarray, traffic: dict, mask=None):
+def lift_truth(donor, starts, lens, rev, mcum):
+    """(n, 3) reference start, end, reverse of each donor source's longest
+    reference segment, and unique: every segment free of the mask (mcum,
+    its running count; None: no mask)."""
+    ref = np.full((len(starts), 3), -1, dtype=np.int64)
+    unique = np.zeros(len(starts), dtype=np.int64)
+    for i, (s, k, r) in enumerate(zip(starts.tolist(), lens.tolist(),
+                                      rev.tolist())):
+        segs = donor.lift(s, s + k)
+        if not segs:
+            ref[i, 2] = int(r)
+            continue
+        a, z, seg_rev = max(segs, key=lambda x: x[1] - x[0])
+        ref[i] = (a, z, int(r) ^ seg_rev)
+        unique[i] = int(mcum is None or all(
+            mcum[z1] - mcum[a1] == 0 for a1, z1, _ in segs))
+    return ref, unique
+
+
+def make_pool(rng, donor, traffic: dict, mask=None):
     """The traffic's files: a list of (reads, truth)."""
-    return [make_file(rng, genome, traffic, int(traffic["file_reads"]), mask)
+    return [make_file(rng, donor, traffic, int(traffic["file_reads"]), mask)
             for _ in range(int(traffic["files"]))]
 
 
-def make_warmup(rng, genome: np.ndarray, traffic: dict):
+def make_warmup(rng, donor, traffic: dict):
     """The reads of the warm-up file."""
-    return make_file(rng, genome, traffic, WARMUP_READS)[0]
+    return make_file(rng, donor, traffic, WARMUP_READS)[0]

@@ -3,6 +3,8 @@ with the plain reference, and the result line's contents.
 
   data     genome and read files from the seed (gen/), written as FASTA
            under a fresh directory in $TMPDIR, before any program import;
+           with a donor in the traffic, the reads come from the donor
+           (gen/donor.py) and the genome written is the reference;
   set-up   (setup_s) the port's own order for a `filter` run
            (linear_tpu_torch/cli.py): import its host modules; Mapper on
            the genome and, with -b 1, PipelineMapper (prepare, then fork
@@ -23,14 +25,19 @@ with the plain reference, and the result line's contents.
   check    after the window, the port's workers closed and its device
            state read back and freed: the device index, a sample of the
            device seeds and every first pass's SAM (and APF) against the
-           reference (reference/), and every later pass's digest against
-           its file's first pass.
+           reference (reference/), every later pass's digest against its
+           file's first pass, and with a donor the SV signals of the
+           first passes' SAM (reference/svsignal.py). attempted counts
+           each read of the pool once (its file's first pass), failed
+           those of them with no primary record there.
 
 A traced run (trace=True) also wraps the seeding calls in spans, reads
 the workers' and the main process's CPU time from the OS over the window,
-and after the window maps one more steady file (the pool's second) under
-torch.profiler; the metric readers (metrics/<name>.py) take their numbers
-from the context it returns.
+turns the program's own tracing on (PipelineMapper.trace) from the
+window's start through the profiled pass, and after the window maps one
+more steady file (the pool's second) under torch.profiler; the metric
+readers (metrics/<name>.py) take their numbers from the context it
+returns. Untraced runs never turn the program's tracing on.
 """
 from __future__ import annotations
 
@@ -44,14 +51,17 @@ import time
 
 import numpy as np
 
+from gen import donor as DN
 from gen import genome as GG
 from gen import reads as GR
 from lib import fasta, procstat
+from lib import program as PG
 from lib import trace as TR
 from reference import dindex as RD
 from reference import fasta as RF
 from reference import placement as RP
 from reference import seeds as RS
+from reference import svsignal as SVS
 
 MIN_SEED_LEN = 200        # reads of 200 bases or fewer are not seeded
 MAX_SEED_LEN = 1 << 17    # nor are reads longer than this
@@ -98,23 +108,28 @@ def threads_of(flags: dict) -> int:
 
 def make_data(cell: dict, seed: int, d: str):
     """Genome, warm-up and read files of the cell in d: (genome path,
-    warm-up path, [(path, names, truth, read lengths)])."""
+    warm-up path, [(path, names, truth, read lengths)], the donor: the
+    traffic's, or the reference itself)."""
     rng = np.random.default_rng(seed)
     cfg, traffic = cell["config"], cell["traffic"]
     g, mask = GG.make(rng, cfg["genome"])
     g_path = os.path.join(d, "genome.fa")
     fasta.write_genome(g_path, cfg["genome"]["id"], g)
+    d_spec = DN.spec_of(traffic)
+    donor = (DN.identity(g) if d_spec is None
+             else DN.make(rng, g, mask, d_spec))
     files = []
-    for fi, (reads, truth) in enumerate(GR.make_pool(rng, g, traffic, mask)):
+    for fi, (reads, truth) in enumerate(GR.make_pool(rng, donor, traffic,
+                                                     mask)):
         names = [f"f{fi}r{i}" for i in range(len(reads))]
         path = os.path.join(d, f"reads{fi}.fa")
         fasta.write_reads(path, names, reads)
         files.append((path, names, truth,
                       np.array([len(r) for r in reads], dtype=np.int64)))
-    warm = GR.make_warmup(rng, g, traffic)
+    warm = GR.make_warmup(rng, donor, traffic)
     w_path = os.path.join(d, "warmup.fa")
     fasta.write_reads(w_path, [f"w{i}" for i in range(len(warm))], warm)
-    return g_path, w_path, files
+    return g_path, w_path, files, donor
 
 
 def seed_sample(seed: int, lens: np.ndarray, k: int = SEED_SAMPLE) -> set:
@@ -152,6 +167,9 @@ def run(cell: dict, seed: int, seconds: float, trace: bool = False,
     the cell asks for (device "cuda")."""
     flags = cell["config"]["flags"]
     check_flags(flags)
+    if "donor" in cell["traffic"] and not int(flags["output_type"]) & 2:
+        raise ValueError("a donor's SV signals are read from the SAM: the "
+                         "configuration writes none")
     tmp = tempfile.mkdtemp(prefix="linear_bench.", dir=os.environ.get(
         "TMPDIR") or None)
     engine = os.environ.get("LINEAR_TPU_ENGINE")
@@ -173,7 +191,7 @@ def _run(cell, seed, seconds, trace, device, control, tmp):
     threads = threads_of(flags)
     ot = int(flags["output_type"])
     t = time.perf_counter()
-    g_path, w_path, files = make_data(cell, seed, tmp)
+    g_path, w_path, files, donor = make_data(cell, seed, tmp)
     log(f"data: genome and {len(files)} read files in "
         f"{time.perf_counter() - t:.3f} s")
 
@@ -194,13 +212,16 @@ def _run(cell, seed, seconds, trace, device, control, tmp):
         raise ValueError("the configuration gives the device no work: the "
                          "CLI maps it on the host engines")
     # -b 1: the pipeline forks its workers here; -b 0: the serial loop
+    # tracing off whatever LINEAR_TPU_TRACE says: a traced run turns it on
+    # for its window alone
     pipeline = (PipelineMapper(
         mapper, n_workers=max(1, min(threads, (os.cpu_count() or 1) + 1)),
-        csize_workers=max(1, threads)) if cfg.bal_flag else None)
+        csize_workers=max(1, threads), trace=False)
+        if cfg.bal_flag else None)
     t_prepare = time.perf_counter() - t1
     try:
         return _after_fork(cell, seed, seconds, trace, device, control,
-                           files, g_path, w_path, threads, ot, mapper,
+                           files, donor, g_path, w_path, threads, ot, mapper,
                            pipeline, t0, t_imp_host, t_prepare, tmp)
     finally:
         # stops and joins the workers (a second close is a no-op)
@@ -208,8 +229,8 @@ def _run(cell, seed, seconds, trace, device, control, tmp):
             pipeline.close()
 
 
-def _after_fork(cell, seed, seconds, trace, device, control, files, g_path,
-                w_path, threads, ot, mapper, pipeline, t0, t_imp_host,
+def _after_fork(cell, seed, seconds, trace, device, control, files, donor,
+                g_path, w_path, threads, ot, mapper, pipeline, t0, t_imp_host,
                 t_prepare, tmp):
     t2 = time.perf_counter()
     import torch
@@ -291,10 +312,11 @@ def _after_fork(cell, seed, seconds, trace, device, control, files, g_path,
     got_seeds: list = [dict() for _ in files]
     orig_stream = mapper._device_seed_stream2
 
-    def tapped(chunks):
+    def tapped(chunks, **kw):
         want = samples[state["file"]] if state["first"] else ()
         rec = got_seeds[state["file"]]
-        for m_out, idxs, anchors in spans.iterate(orig_stream(chunks),
+        # traced, the pipeline's collector passes its counters= on
+        for m_out, idxs, anchors in spans.iterate(orig_stream(chunks, **kw),
                                                   "seed.stream"):
             if want:
                 for i, a in zip(idxs, anchors):
@@ -355,6 +377,7 @@ def _after_fork(cell, seed, seconds, trace, device, control, files, g_path,
     # fetched)
     passes = []
     texts = [None] * len(files)
+    program = []    # each pass's PipeCounters
 
     def map_file(fi, first):
         """One pass of read file fi, consumed as the CLI's emit does."""
@@ -381,6 +404,7 @@ def _after_fork(cell, seed, seconds, trace, device, control, files, g_path,
         tf1 = time.perf_counter_ns()
         sam_t, apf_t = "".join(sam), "".join(apf)
         c = counters["file"]
+        program.append(c)
         passes.append((fi, n, hashlib.sha256(sam_t.encode()).hexdigest(),
                        hashlib.sha256(apf_t.encode()).hexdigest(), d_bam,
                        c.shipped_seeded, c.fetched))
@@ -391,6 +415,8 @@ def _after_fork(cell, seed, seconds, trace, device, control, files, g_path,
         return tf0, tf1
 
     if trace:
+        if pipeline is not None:
+            pipeline.trace = True
         cpu_main0 = procstat.cpu_seconds(os.getpid())
         cpu_work0 = procstat.total(pids)
     tw0 = time.perf_counter()
@@ -422,6 +448,8 @@ def _after_fork(cell, seed, seconds, trace, device, control, files, g_path,
             spans.profiling = False
             if device == "cuda":
                 torch.cuda.synchronize()
+        if pipeline is not None:
+            pipeline.trace = False
         prof_window = (sync_ns / 1e9, tf1 / 1e9)
         dev_events = TR.device_events(prof.events(), sync_ns)
     for u in reversed(undo):
@@ -454,11 +482,15 @@ def _after_fork(cell, seed, seconds, trace, device, control, files, g_path,
     # ------------------------------------------------------------ check
     t = time.perf_counter()
     checks, failed = compare(cell, files, g_path, threads, ot, dir_d, hs_d,
-                             got_seeds, samples, texts, passes, n_window)
+                             got_seeds, samples, texts, passes, donor)
     log(f"check: reference and comparison in "
         f"{time.perf_counter() - t:.3f} s")
+    # each read of the pool once: every file has its first pass in the
+    # window, however many passes of it the window holds
+    attempted = sum(len(files[fi][1]) for fi in range(len(files))
+                    if texts[fi] is not None)
     out = {"setup_s": setup_s, "reads_per_s": reads / window_s,
-           "attempted": reads, "failed": failed, "checks": checks,
+           "attempted": attempted, "failed": failed, "checks": checks,
            "device": dev_info, "setup": setup, "window_s": window_s,
            "passes": len(passes)}
     if trace:
@@ -479,6 +511,7 @@ def _after_fork(cell, seed, seconds, trace, device, control, files, g_path,
                 {"seed.pack", "seed.dispatch", "seed.collect"}),
             "device_events": dev_events, "launches": launches,
             "trace_window": (p0, p1),
+            "program": [c for c in program[:n_window] if c.trace],
         }
         out["device"]["busy_s"] = TR.busy_seconds(dev_events, p0, p1)
         out["device"]["window_s"] = p1 - p0
@@ -487,14 +520,16 @@ def _after_fork(cell, seed, seconds, trace, device, control, files, g_path,
                                       if p0 <= e[1] <= p1]),
             "idle_gaps": TR.idle_gaps(dev_events, [s for s in spans.items
                                                    if s[0] != "file"],
-                                      p0, p1)}
+                                      p0, p1),
+            "idle_gaps_program": PG.idle_gaps_program(
+                dev_events, program[-1].spans, p0, p1)}
     return out
 
 
 def compare(cell, files, g_path, threads, ot, dir_d, hs_d, got_seeds,
-            samples, texts, passes, n_window):
+            samples, texts, passes, donor):
     """{name: (value, limit)} of every number compared, and the reads of
-    the window with no placed primary record."""
+    the pool with no primary record in their file's first pass."""
     limits = cell["limits"]
     checks = {}
     # the device index
@@ -563,5 +598,23 @@ def compare(cell, files, g_path, threads, ot, dir_d, hs_d, got_seeds,
         checks["sam_misplaced_pct"] = 100.0 * mis_sam / max(total, 1)
     if ot & 1:
         checks["apf_misplaced_pct"] = 100.0 * mis_apf / max(total, 1)
-    failed = sum(missing_by_file.get(fi, 0) for fi, *_ in passes[:n_window])
+    if "donor" in cell["traffic"]:
+        checks["sv_signal_missed_pct"] = sv_missed(donor, files, texts)
+    failed = sum(missing_by_file.values())
     return {k: (v, limits[k]) for k, v in checks.items()}, failed
+
+
+def sv_missed(donor, files, texts) -> float:
+    """sv_signal_missed_pct of the first passes' SAM (reference/svsignal),
+    the pool's reads taken together; the counts by SV type go to the
+    log."""
+    got = [fi for fi in range(len(files)) if texts[fi] is not None]
+    names = [nm for fi in got for nm in files[fi][1]]
+    truth = np.concatenate([files[fi][2] for fi in got])
+    res = SVS.check(donor.svs, "\n".join(texts[fi][0] for fi in got),
+                    names, truth[:, 4:6], truth[:, 6])
+    for kind in DN.TYPES:
+        of = [f for sv, _, f in res if sv.kind == kind]
+        log(f"sv {kind}: {sum(of)} of {len(of)} counted found "
+            f"({sum(sv.kind == kind for sv in donor.svs)} in the donor)")
+    return SVS.missed_pct(res)

@@ -3,10 +3,9 @@
 with its spans, thread CPU and the workers' native phase times).
 
 The readers take ctx["program"]: the PipeCounters of each of the
-window's passes, traced from the window's start, which lib/cellrun.py
-does not put in the context yet (PERF.md §7 names the edit that would);
-ctx["window_s"] and ctx["workers"] are the window's wall and pool size
-as cellrun gives them.
+window's passes, traced from the window's start, as lib/cellrun.py gives
+them in a traced run; ctx["window_s"] and ctx["workers"] are the window's
+wall and pool size.
 Each reader returns None where there is nothing to read: no traced pass,
 or no pool task (the -b 0 serial loop). READERS maps the per-layer
 metrics' names to them; idle_gaps_program names the device's idle time by

@@ -1,0 +1,8 @@
+"""The in-order drain's CPU, between the consumer's turns, over the
+window's wall, in %. From the program's own tracing (lib/program.py), on
+in traced runs; nothing where the run has no traced pass."""
+from lib import program
+
+
+def read(ctx):
+    return program.READERS["pipeline.drain_cpu_share"](ctx)

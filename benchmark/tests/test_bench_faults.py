@@ -4,6 +4,7 @@ tiny size: a sound run is correct; the control and each fault this cell
 can have, planted in the timed path underneath, make it not correct."""
 import functools
 import re
+import time
 
 import numpy as np
 import pytest
@@ -210,3 +211,37 @@ def test_engine_is_the_configuration_s(monkeypatch):
     cellrun.run(_flagged(), 1, 0.1, device="cpu")
     assert seen == ["py", "native"]
     assert cellrun.os.environ["LINEAR_TPU_ENGINE"] == "native"
+
+
+class _Clock:
+    """cellrun's `time`, with a perf_counter that moves a second a call,
+    so that a window of s seconds holds a set number of passes."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def perf_counter(self):
+        self.t += 1.0
+        return self.t
+
+    perf_counter_ns = staticmethod(time.perf_counter_ns)
+
+
+@pytest.mark.parametrize("fault", [None, fault_half_left_out])
+def test_each_pool_read_counts_once(monkeypatch, fault):
+    """attempted and failed count each read of the pool once, in its
+    file's first pass: a pool mapped in 2 passes and in 5 gives the same
+    counts and share, with reads missing and without."""
+    if fault:
+        fault(monkeypatch)
+    got = []
+    for seconds in (1.0, 4.0):
+        monkeypatch.setattr(cellrun, "time", _Clock())
+        res = cellrun.run(bench_tiny.cell(), 2**36 + 80, seconds,
+                          device="cpu")
+        got.append((res["passes"], res["attempted"], res["failed"],
+                    res["failed"] / res["attempted"]))
+    assert [g[0] for g in got] == [2, 5]
+    assert got[0][1:] == got[1][1:]
+    assert got[0][1] == 2 * 24
+    assert (got[0][2] > 0) == bool(fault)

@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 
 import bench_tiny
+from gen import donor as DN
 from gen import genome as GG
 from gen import reads as GR
 from lib import cellrun
@@ -45,10 +46,11 @@ def test_lengths_follow_the_traffic(traffic):
     # every seed maps the same multiset of lengths, in another order
     g = np.random.default_rng(1).integers(0, 4, 2_000_000).astype(np.uint8)
     t = dict(tf, file_reads=50)
-    r1, _ = GR.make_file(np.random.default_rng(1), g, t, 50)
-    r2, _ = GR.make_file(np.random.default_rng(2), g, t, 50)
-    _, tr1 = GR.make_file(np.random.default_rng(1), g, t, 50)
-    _, tr2 = GR.make_file(np.random.default_rng(2), g, t, 50)
+    d = DN.identity(g)
+    r1, _ = GR.make_file(np.random.default_rng(1), d, t, 50)
+    r2, _ = GR.make_file(np.random.default_rng(2), d, t, 50)
+    _, tr1 = GR.make_file(np.random.default_rng(1), d, t, 50)
+    _, tr2 = GR.make_file(np.random.default_rng(2), d, t, 50)
     assert sorted(tr1[:, 1] - tr1[:, 0]) == sorted(tr2[:, 1] - tr2[:, 0])
 
 
@@ -102,12 +104,12 @@ def test_full_chr21_n_total():
 def test_reads_avoid_n_and_record_truth():
     c = bench_tiny.cell("human_chr21.clr")
     g, mask = GG.make(np.random.default_rng(3), c["config"]["genome"])
-    reads, truth = GR.make_file(np.random.default_rng(4), g,
+    reads, truth = GR.make_file(np.random.default_rng(4), DN.identity(g),
                                 dict(c["traffic"],
                                      errors={"sub": 0, "ins": 0, "del": 0}),
                                 200, mask)
     n_rev = 0
-    for r, (s, e, rev, uniq) in zip(reads, truth.tolist()):
+    for r, (s, e, rev, uniq, *_) in zip(reads, truth.tolist()):
         assert uniq == int(not mask[s:e].any())
         src = g[s:e]
         assert (src != 4).all()
@@ -127,3 +129,18 @@ def test_seeds_share_the_make_up(name):
     assert not np.array_equal(a, b)
     assert len(a) == len(b) and (a == 4).sum() == (b == 4).sum()
     assert abs(int(ma.sum()) - int(mb.sum())) <= 0.01 * ma.sum()
+
+
+def test_bacterial_rep_family_is_every_seed_s():
+    """The REP-like family has one consensus for every seed: the genomes
+    of two seeds each hold a hundred or more unmutated copies of its
+    first half, on either strand."""
+    spec = bench_tiny.cell("ecoli_k12.clr")["config"]["genome"]
+    spec["length"] = 2_000_000
+    half = GG.rep_consensus()[:20]
+    words = {half.tobytes(), GG.revcomp(half).tobytes()}
+    for seed in (1, 2):
+        g, _ = GG.make(np.random.default_rng(seed), spec)
+        win = np.lib.stride_tricks.sliding_window_view(g, 20)
+        n = sum(w.tobytes() in words for w in win[::1])
+        assert n >= 100, (seed, n)

@@ -129,3 +129,58 @@ def test_readers_on_a_traced_pipeline_run(tmp_path):
     assert got["workers.gap_ms_per_read"] >= 0
     assert os.getpid() not in {sp.pid for sp in pipe.counters.spans
                                if sp.name == "worker.task"}
+
+
+@pytest.mark.parametrize("name", sorted(P.READERS))
+def test_metric_file_reads_the_program(name):
+    """metrics/<name>.py of each program metric is lib/program's reader,
+    and each has its per_layer entry, moving reads_per_s."""
+    from lib import spec
+
+    assert spec.reader(name)(_ctx()) == pytest.approx(P.READERS[name](_ctx()))
+    assert spec.reader(name)({"window_s": 1.0, "workers": 8}) is None
+    entry = {m["name"]: m for m in spec.benchmark()["per_layer"]}[name]
+    assert entry["moves"] == "reads_per_s"
+    assert entry["source"] in ("program_counter", "program_span")
+
+
+def _seen_trace(monkeypatch):
+    from linear_tpu_torch.parallel import pipeline as PL
+
+    seen = []
+    orig = PL.PipelineMapper.run
+
+    def run(self, *a, **k):
+        seen.append(self.trace)
+        return orig(self, *a, **k)
+
+    monkeypatch.setattr(PL.PipelineMapper, "run", run)
+    return seen
+
+
+def test_traced_run_turns_the_program_tracing_on(monkeypatch):
+    """A traced harness run turns the program's tracing on from the
+    window's start through the profiled pass (not the warm-up), puts the
+    window's passes in ctx["program"], where every reader finds a number,
+    and names the device's idle time by the program's spans."""
+    from lib import cellrun, spec
+
+    seen = _seen_trace(monkeypatch)
+    res = cellrun.run(bench_tiny.cell(), 2**36 + 81, 0.1, trace=True,
+                      device="cpu")
+    assert seen == [False] + [True] * res["passes"]
+    ctx = res["ctx"]
+    assert len(ctx["program"]) == res["passes"] - 1
+    for name in P.READERS:
+        assert spec.reader(name)(ctx) is not None, name
+    gaps = res["breakdown"]["idle_gaps_program"]
+    assert gaps and sum(v for _, v in gaps) == pytest.approx(
+        res["device"]["window_s"], rel=1e-6)
+
+
+def test_untraced_run_never_turns_it_on(monkeypatch):
+    from lib import cellrun
+
+    seen = _seen_trace(monkeypatch)
+    res = cellrun.run(bench_tiny.cell(), 2**36 + 82, 0.1, device="cpu")
+    assert seen == [False] * (res["passes"] + 1) and "ctx" not in res

@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 
 import bench_tiny
+from gen import donor as DN
 from gen import genome as GG
 from gen import reads as GR
 from reference import dindex as RD
@@ -64,7 +65,7 @@ def bacterial():
                     "min": 100, "max": 30000},
          "errors": {"sub": 0.01, "ins": 0.01, "del": 0.01},
          "reverse_share": 1 / 3}
-    reads, _ = GR.make_file(rng, g, t, 60)
+    reads, _ = GR.make_file(rng, DN.identity(g), t, 60)
     return g, d, h, reads
 
 
